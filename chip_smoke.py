@@ -1,0 +1,528 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of the adaptive FMM on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Runs top to bottom and exits nonzero on the first failure:
+
+1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
+2. builds the four CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (one ``nvcc`` per source, all started together) and prints each
+   kernel's registers, shared memory and spills;
+3. kernel phase: on the operands of the N = 2^20, p = 17 plans (paper
+   Fig. 5.8 scale) of uniform, normal and layer particles (caps raised
+   until no list overflows), in f32 and f64, holds each kernel against
+   its plain torch version on the same inputs (classify bit-identical;
+   the others per element within F64_TOL in f64 and F32_KERNEL_TOL in
+   f32), checks that a second launch is bitwise equal to the first,
+   prints how many list entries each plan occupies, and times kernel and
+   plain version with CUDA events at the uniform plan;
+4. main path: ``FmmSolver.build(fmm_config(1 << 20, p=17))`` on the
+   default device and ``apply_checked`` on uniform, normal and layer
+   particles (seed 0), in f32 and f64: every kernel counter must rise by
+   exactly one per apply; accuracy against ``direct_potential`` on 4096
+   sampled targets over all 2^20 sources; in f64 the "cuda" and
+   "reference" backends must agree within 1e-10;
+5. batched: ``apply_batched`` with B = 4 at N = 2^20 in f32 — one launch
+   per kernel, each row equal to that problem's ``apply``;
+6. prints one JSON line with every kernel's launches, error, times and
+   bound, the card line again, and last
+   ``{"ok": true, "device": {...}}``.
+
+Needs one CUDA card; without one it exits nonzero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import re
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+N = 1 << 20
+P_TERMS = 17
+SEED = 0
+DISTS = ("uniform", "normal", "layer")
+N_SAMPLE = 4096
+KERNEL_REPS = 20
+PLAIN_REPS = 5
+# Kernel vs plain version, per element (``scaled_err``): |kernel - plain|
+# over |plain| plus the mean |plain| of its column (one coefficient order
+# of M2L and P2L, one particle slot of the evaluation), so neither the
+# largest output (the nearest pair's, for the evaluation) nor an element
+# that cancels to near zero sets the scale.
+F64_TOL = 1e-10
+# In f32 both versions round every operation to f32 but sum in different
+# orders (and the kernels contract products into FMAs), so they differ by
+# about the f32 rounding error of each. The smoke prints that level (the
+# plain version in f32 against itself in f64 on the same inputs) beside
+# each f32 comparison; the limits sit about ten times above it. P2L's
+# high orders are sums of many terms of both signs that cancel, so its
+# level is the highest. A dropped or wrong term moves the elements it
+# touches by far more than any of these limits.
+F32_KERNEL_TOL = {"m2l": 2e-5, "p2l": 1e-4, "eval_fused": 1e-5}
+# accuracy bounds of the JAX reference's own tests
+# (tests/test_fmm_accuracy.py:29 in f64, :41 in f32)
+ACC_BOUND = {"f64": 2e-6, "f32": 5e-4}
+
+# H100 SXM data-sheet peaks (vector f32 / f64 outside the tensor cores,
+# HBM3 bandwidth)
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
+PEAK_BYTES = 3.35e12
+
+KERNELS = {
+    "classify": ("src/repro_torch/kernels/csrc/classify.cu",
+                 "src/repro/kernels/topology/classify.py:85"),
+    "m2l": ("src/repro_torch/kernels/csrc/m2l.cu",
+            "src/repro/kernels/m2l/m2l.py:106"),
+    "p2l": ("src/repro_torch/kernels/csrc/p2l.cu",
+            "src/repro/kernels/eval/p2l.py:120"),
+    "eval_fused": ("src/repro_torch/kernels/csrc/eval_fused.cu",
+                   "src/repro/kernels/eval/fused.py:140"),
+}
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def demangle(sym: str) -> str:
+    """``_Z14classify_kernelIfEv...`` -> ``classify_kernel<float>`` (with
+    ``, log`` for the log-kernel instantiation)."""
+    m = re.match(r"_Z(\d+)", sym)
+    if not m:
+        return sym
+    start = m.end()
+    name = sym[start:start + int(m.group(1))]
+    rest = sym[start + int(m.group(1)):]
+    t = {"f": "float", "d": "double"}.get(rest[1:2], "?")
+    log = ", log" if rest.startswith(("IfLb1E", "IdLb1E")) else ""
+    return f"{name}<{t}{log}>"
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per compiled kernel: name, registers, static shared
+    memory and spills (from ``-Xptxas -v``; the kernels' shared memory is
+    dynamic: each library reports its own, ``CudaLibrary.smem_bytes``)."""
+    lines, name, spill = [], None, ""
+    for raw in log.splitlines():
+        s = raw.strip()
+        if "Compiling entry function" in s:
+            name = demangle(s.split("'")[1]) if "'" in s else s
+        elif "spill stores" in s:
+            spill = s.split("bytes stack frame,")[-1].strip()
+        elif "Used" in s and "registers" in s and name:
+            lines.append(f"  {name}: {s.split(':', 1)[1].strip()}; {spill}")
+    return lines
+
+
+def scaled_err(a, b) -> float:
+    """max over elements of |a - b| / (|b| + mean |b| of its column, the
+    last axis indexing columns)."""
+    mag = b.abs()
+    floor = mag.reshape(-1, mag.shape[-1]).mean(dim=0)
+    # an all-zero column: both zero -> 0, a nonzero kernel value -> huge
+    floor = floor.clamp_min(1e-300 if mag.dtype.itemsize == 8 else 1e-37)
+    return float(((a - b).abs() / (mag + floor)).max())
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| / max |b| (normwise, so cancellation cannot inflate it)."""
+    den = float(b.abs().max())
+    return float((a - b).abs().max()) / (den if den > 0 else 1.0)
+
+
+def time_cuda(fn, reps: int, torch) -> float:
+    """Median milliseconds of ``reps`` calls, each between CUDA events,
+    after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def work_of(name: str, args, kwargs, dt: str) -> tuple[float, float]:
+    """(flops, bytes) the function needs on these inputs: each input read
+    once and each output written once; flops counted on the list entries
+    that are actually occupied (transcendentals and divisions as one
+    operation each)."""
+    sz = 8 if dt == "f64" else 4
+    if name == "classify":
+        cand, valid, centers, radii = args
+        pairs = int(valid.sum())
+        nbytes = cand.numel() * 4 + 3 * radii.numel() * sz + 5 * cand.numel() * 4
+        return 16.0 * pairs, float(nbytes)
+    if name == "m2l":
+        weak, ar = args[0], args[1]
+        P = ar.shape[-1]
+        p = P - 1
+        entries = int((weak >= 0).sum())
+        per = 4 * P * P + 6 * P + 12 * p + 8 * P
+        nbytes = (weak.numel() * 4 + 2 * ar.numel() * sz
+                  + sum(a.numel() for a in args[3:7]) * sz + P * P * sz
+                  + sum(a.numel() for a in args[8:] if a is not None) * sz
+                  + 2 * ar.numel() * sz)
+        return float(per * entries), float(nbytes)
+    if name == "p2l":
+        lists, xr = args[0], args[4]
+        p = kwargs["p"]
+        n = xr.shape[-1]
+        entries = int((lists >= 0).sum())
+        per_particle = 14 + 8 * (p + 1)
+        nbytes = (lists.numel() * 4 + 3 * args[1].numel() * sz
+                  + 4 * xr.numel() * sz + 2 * args[1].numel() * (p + 1) * sz)
+        return float(entries * n * per_particle), float(nbytes)
+    # eval_fused
+    p2p, m2p, zr = args[0], args[1], args[2]
+    p = kwargs["p"]
+    B, nb, n = zr.shape
+    targets = B * nb * n
+    pairs = int((p2p >= 0).sum()) * n * n
+    flops = targets * 8 * p + pairs * 14
+    nbytes = (p2p.numel() * 4 + 6 * zr.numel() * sz + args[6].numel() * 4
+              + 2 * args[9].numel() * sz + 2 * zr.numel() * sz)
+    if m2p is not None:
+        flops += int((m2p >= 0).sum()) * n * (8 * p + 14)
+        nbytes += (m2p.numel() * 4 + 2 * kwargs["ar"].numel() * sz
+                   + 3 * kwargs["mrho"].numel() * sz)
+    return float(flops), float(nbytes)
+
+
+def grow_caps(cfg, margins: dict):
+    """Double the caps of the classes that overflowed."""
+    import dataclasses
+    strong, weak = cfg.strong_cap, cfg.weak_cap
+    if any(margins[c] < 0 for c in ("strong", "p2p", "p2l", "m2p")):
+        strong *= 2
+    if margins["weak"] < 0:
+        weak *= 2
+    return dataclasses.replace(cfg, strong_cap=strong, weak_cap=weak)
+
+
+def capture(cfg, z, q, torch):
+    """Build and evaluate one plan through the kernel hooks, raising the
+    caps until no list overflows. Returns the config used, each kernel's
+    operands (positional, keyword) and the occupied list entries."""
+    from repro_torch.core.fmm import fmm_build, fmm_evaluate
+    from repro_torch.core.topology import MARGIN_CLASSES
+    from repro_torch.kernels import (eval_fused_apply, eval_operands,
+                                     leaf_classify_cuda, m2l_fused_apply,
+                                     m2l_operands, p2l_apply, p2l_operands)
+
+    cap = {}
+
+    def classify_rec(cand, valid, centers, radii, c):
+        cap["classify"] = ((cand, valid, centers, radii), {})
+        return leaf_classify_cuda(cand, valid, centers, radii, c)
+
+    def m2l_rec(mult, weak, centers, c, rho):
+        cap["m2l"] = (m2l_operands(mult, weak, centers, c, rho)[0], {})
+        return m2l_fused_apply(mult, weak, centers, c, rho)
+
+    def p2l_rec(tree, conn, c, rho):
+        cap["p2l"] = p2l_operands(tree, conn, c, rho)
+        return p2l_apply(tree, conn, c, rho)
+
+    def eval_rec(local, mult_leaf, tree, conn, c):
+        cap["eval_fused"] = eval_operands(local, mult_leaf, tree, conn, c)
+        return eval_fused_apply(local, mult_leaf, tree, conn, c)
+
+    while True:
+        plan = fmm_build(z[None], q[None], cfg, leaf_classify_impl=classify_rec)
+        if int(plan.conn.overflow.max()) == 0:
+            break
+        margins = dict(zip(MARGIN_CLASSES,
+                           plan.conn.margins.min(dim=0).values.tolist()))
+        cfg = grow_caps(cfg, margins)
+    fmm_evaluate(plan, cfg, m2l_fused_impl=m2l_rec, p2l_impl=p2l_rec,
+                 eval_fused_impl=eval_rec)
+    torch.cuda.synchronize()
+    conn = plan.conn
+    occupied = {"pairs": int(cap["classify"][0][1].sum()),
+                "weak": sum(int((w >= 0).sum()) for w in conn.weak),
+                "p2p": int((conn.p2p >= 0).sum()),
+                "p2l": int((conn.p2l >= 0).sum()),
+                "m2p": int((conn.m2p >= 0).sum())}
+    return cfg, cap, occupied
+
+
+def upcast(args, kwargs, torch):
+    """The same operands with every f32 tensor widened to f64."""
+    def up(a):
+        return (a.double() if isinstance(a, torch.Tensor)
+                and a.dtype == torch.float32 else a)
+    return tuple(up(a) for a in args), {k: up(v) for k, v in kwargs.items()}
+
+
+def kernel_phase(dt: str, torch) -> list[dict]:
+    """Each kernel against its plain version on the operands of the
+    N = 2^20 plans of the three distributions; timings and bounds at the
+    uniform plan (the default caps)."""
+    from repro_torch.configs import fmm_config
+    from repro_torch.data import particles
+    from repro_torch.kernels import (eval_fused_cuda, eval_fused_plain,
+                                     leaf_classify_cuda, leaf_classify_plain,
+                                     m2l_cuda, m2l_plain, p2l_cuda, p2l_plain)
+
+    entries_of = {"classify": ("pairs",), "m2l": ("weak",), "p2l": ("p2l",),
+                  "eval_fused": ("p2p", "m2p")}
+    rows = {}
+    for dist in DISTS:
+        z, q = particles(dist, N, SEED)
+        cfg, cap, occupied = capture(fmm_config(N, p=P_TERMS, dtype=dt), z,
+                                     q, torch)
+        print(f"plan[{dt}/{dist}]: caps strong={cfg.strong_cap} "
+              f"weak={cfg.weak_cap}; occupied entries {occupied}", flush=True)
+        impls = {
+            "classify": (lambda a, k: leaf_classify_cuda(*a, cfg),
+                         lambda a, k: leaf_classify_plain(*a, cfg)),
+            "m2l": (lambda a, k: m2l_cuda(*a), lambda a, k: m2l_plain(*a)),
+            "p2l": (lambda a, k: p2l_cuda(*a, **k),
+                    lambda a, k: p2l_plain(*a, **k)),
+            "eval_fused": (lambda a, k: eval_fused_cuda(*a, **k),
+                           lambda a, k: eval_fused_plain(*a, **k)),
+        }
+        for name, (kern, plain) in impls.items():
+            args, kwargs = cap[name]
+            first = kern(args, kwargs)
+            second = kern(args, kwargs)
+            ref = plain(args, kwargs)
+            torch.cuda.synchronize()
+            tag = f"{name}[{dt}/{dist}]"
+            check(all(torch.equal(a, b) for a, b in zip(first, second)),
+                  f"{tag}: second launch differs from the first")
+            entries = " ".join(f"{k}={occupied[k]}" for k in entries_of[name])
+            if name == "classify":
+                check(all(torch.equal(a, b) for a, b in zip(first, ref)),
+                      f"{tag}: kernel and plain version differ")
+                err, abs_err, note = 0.0, 0.0, "bit-identical"
+            else:
+                kc, pc = torch.complex(*first), torch.complex(*ref)
+                err = scaled_err(kc, pc)
+                abs_err = float((kc - pc).abs().max())
+                tol = F64_TOL if dt == "f64" else F32_KERNEL_TOL[name]
+                note = f"scaled_err={err:.3e} (limit {tol:g})"
+                if dt == "f32":
+                    wide = torch.complex(*plain(*upcast(args, kwargs, torch)))
+                    note += (f", f32 rounding of the plain version "
+                             f"{scaled_err(pc.to(wide.dtype), wide):.3e}")
+                    del wide
+                check(err <= tol, f"{tag}: kernel vs plain {err:.3e} > {tol}")
+            print(f"kernel {tag}: {entries}; {note}; abs_err={abs_err:.3e}",
+                  flush=True)
+            row = rows.setdefault(name, {
+                "name": f"{name}_{dt}", "route": "cuda",
+                "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+                "launches": 0, "max_abs_err": 0.0})
+            row["max_abs_err"] = max(row["max_abs_err"], abs_err)
+            if dist != "uniform":
+                continue
+            ms = time_cuda(lambda: kern(args, kwargs), KERNEL_REPS, torch)
+            plain_ms = time_cuda(lambda: plain(args, kwargs), PLAIN_REPS,
+                                 torch)
+            flops, nbytes = work_of(name, args, kwargs, dt)
+            t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES
+            row.update(ms=ms, plain_ms=plain_ms,
+                       bound_ms=1e3 * max(t_ops, t_bytes),
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       library_ms=None)
+            print(f"time {tag}: ms={ms:.4f} plain_ms={plain_ms:.3f} "
+                  f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; "
+                  f"{flops:.3e} flop, {nbytes:.3e} B)", flush=True)
+        del cap, z, q
+        torch.cuda.empty_cache()
+    return list(rows.values())
+
+
+def main_path(dt: str, torch) -> tuple[dict, object, list]:
+    """The served entry point on three distributions; returns the launch
+    totals, the (possibly cap-raised) config and the apply times."""
+    from repro_torch.configs import fmm_config
+    from repro_torch.core.direct import direct_potential, rel_error_inf
+    from repro_torch.data import particles
+    from repro_torch.errors import CapOverflowError
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.solver import FmmSolver
+
+    cfg = fmm_config(N, p=P_TERMS, dtype=dt)
+    totals = {k: 0 for k in KERNELS}
+    times = []
+    gen = torch.Generator().manual_seed(SEED)
+    sample = torch.randperm(N, generator=gen)[:N_SAMPLE].cuda()
+    for dist in DISTS:
+        z, q = particles(dist, N, SEED)
+        while True:
+            solver = FmmSolver.build(cfg)
+            check(solver.dispatched["apply"] == "cuda",
+                  f"dispatched {solver.dispatched}")
+            reset_launch_counts()
+            try:
+                phi = solver.apply_checked(z, q)
+                torch.cuda.synchronize()
+                counts = launch_counts()
+            except CapOverflowError as e:
+                counts = launch_counts()
+                cfg = grow_caps(cfg, e.margins)
+                print(f"main[{dt}/{dist}]: caps overflow {e.margins}; "
+                      f"raised to strong_cap={cfg.strong_cap} "
+                      f"weak_cap={cfg.weak_cap}", flush=True)
+                continue
+            break
+        check(all(v == 1 for v in counts.values()),
+              f"main[{dt}/{dist}]: launches per apply {counts} (want 1 each)")
+        for k, v in counts.items():
+            totals[k] += v
+        reps = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = solver.apply(z, q)
+            torch.cuda.synchronize()
+            reps.append(time.perf_counter() - t0)
+        check(torch.equal(again, phi), f"main[{dt}/{dist}]: apply not "
+              "bitwise reproducible")
+        times.append(statistics.median(reps))
+        # accuracy: f64 direct sum at sampled targets over all sources,
+        # both from the positions as given and from the positions as the
+        # solver sees them (rounded to the config's precision)
+        zs = z.to(cfg.torch_complex).to(torch.complex128)
+        d_given = direct_potential(z[sample], z, q)
+        d_seen = direct_potential(zs[sample], zs, q)
+        got = phi[sample].to(torch.complex128)
+        err_given = rel_error_inf(got, d_given)
+        err_seen = rel_error_inf(got, d_seen)
+        print(f"main[{dt}/{dist}]: caps strong={cfg.strong_cap} "
+              f"weak={cfg.weak_cap}; launches {counts}; apply "
+              f"{1e3 * times[-1]:.1f} ms; rel_err_inf vs direct: "
+              f"{err_given:.3e} (positions as given), {err_seen:.3e} "
+              f"(positions in {dt})", flush=True)
+        check(err_seen < ACC_BOUND[dt],
+              f"main[{dt}/{dist}]: accuracy {err_seen:.3e} >= {ACC_BOUND[dt]}")
+        if dt == "f64":
+            ref = FmmSolver.build(cfg, backend="reference").apply(z, q)
+            d = rel_err(phi, ref)
+            print(f"main[{dt}/{dist}]: cuda vs reference backend {d:.3e}",
+                  flush=True)
+            check(d <= F64_TOL, f"cuda vs reference {d:.3e} > {F64_TOL}")
+            del ref
+        del phi, again, z, q
+        torch.cuda.empty_cache()
+    return totals, cfg, times
+
+
+def batched_phase(cfg, torch) -> None:
+    from repro_torch.data import particles
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.solver import FmmSolver
+
+    probs = [particles(d, N, s) for d, s in
+             (("uniform", 0), ("normal", 0), ("layer", 0), ("uniform", 1))]
+    zb = torch.stack([z for z, _ in probs])
+    qb = torch.stack([q for _, q in probs])
+    from repro_torch.errors import CapOverflowError
+    while True:
+        solver = FmmSolver.build(cfg)
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            phib = solver.apply_batched_checked(zb, qb)
+        except CapOverflowError as e:
+            cfg = grow_caps(cfg, e.margins)
+            print(f"batched: caps overflow {e.margins}; raised to "
+                  f"strong_cap={cfg.strong_cap} weak_cap={cfg.weak_cap}",
+                  flush=True)
+            continue
+        torch.cuda.synchronize()
+        dt_b = time.perf_counter() - t0
+        counts = launch_counts()
+        break
+    check(all(v == 1 for v in counts.values()),
+          f"batched: launches {counts} (want 1 each for B = 4)")
+    worst = 0.0
+    for b, (z, q) in enumerate(probs):
+        row = solver.apply(z, q)
+        worst = max(worst, float((phib[b] - row).abs().max()))
+    print(f"batched[{cfg.dtype}] B=4: launches {counts}; "
+          f"{1e3 * dt_b:.1f} ms; max |row - apply| = {worst:.3e}", flush=True)
+    check(worst == 0.0, "batched rows differ from single applies")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA card in this process", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build_all, launch_counts
+    from repro_torch.kernels.build import LIBRARIES
+
+    card = card_line()
+    print(card, flush=True)
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}",
+          flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    t0 = time.perf_counter()
+    logs = build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    for name, log in logs.items():
+        print(f"ptxas {name}:")
+        print("\n".join(ptxas_summary(log)), flush=True)
+    smem = {dt: {name: lib.smem_bytes(sz, 64, P_TERMS + 1)
+                 for name, lib in LIBRARIES.items()}
+            for dt, sz in (("f32", 4), ("f64", 8))}
+    print(f"dynamic shared memory per block (bytes, from each launcher), "
+          f"p={P_TERMS}, n_max=64: {smem}", flush=True)
+
+    rows = []
+    for dt in ("f32", "f64"):
+        rows += kernel_phase(dt, torch)
+    main_cfg = {}
+    for dt in ("f32", "f64"):
+        totals, cfg, times = main_path(dt, torch)
+        main_cfg[dt] = cfg
+        for row in rows:
+            base, rdt = row["name"].rsplit("_", 1)
+            if rdt == dt:
+                row["launches"] = totals[base]
+                check(totals[base] > 0, f"{row['name']} never launched on "
+                      "the main path")
+        print(f"main[{dt}]: launches {totals}; apply ms "
+              f"{[round(1e3 * t, 1) for t in times]}", flush=True)
+    batched_phase(main_cfg["f32"], torch)
+    check(launch_counts(), "no kernel library registered")
+
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

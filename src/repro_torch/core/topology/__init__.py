@@ -1,0 +1,22 @@
+"""Device-resident topology (paper §4.1–§4.3), batched over problems:
+
+  tree.py          single-sort adaptive tree build (2 full sorts total,
+                   then O(N) rank-partitions per split) and the level
+                   geometry pass
+  connectivity.py  theta-criterion interaction lists, one batched
+                   compaction sort, the leaf classification as a hook
+                   (plain torch | CUDA kernel)
+  rounding.py      the exactly rounded hypot / fma / sqrt the lists'
+                   bit parity with the JAX reference rests on
+"""
+from .tree import (LeafLayout, Tree, build_tree, leaf_ids, leaf_layout,
+                   leaf_particle_index)
+from .connectivity import (MARGIN_CLASSES, Connectivity, build_connectivity,
+                           leaf_classify_reference)
+
+__all__ = [
+    "Tree", "build_tree", "leaf_ids", "leaf_particle_index", "LeafLayout",
+    "leaf_layout",
+    "Connectivity", "MARGIN_CLASSES", "build_connectivity",
+    "leaf_classify_reference",
+]

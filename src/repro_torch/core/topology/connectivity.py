@@ -1,0 +1,249 @@
+"""Theta-criterion connectivity (paper §2, eq. (2.1)) — batched build.
+
+Per level l, every box carries a *directed* strong list and a *directed*
+weak (M2L) list, padded to static caps: symmetric pairs are duplicated so
+each box's interactions are computed independently, without atomics.
+
+Candidates for box b at level l are exactly the children of the strong set
+of b's parent; each candidate is classified by
+
+    well-separated(b, c)  <=>  R + theta*r <= theta*d,
+    R = max(r_b, r_c), r = min(r_b, r_c), d = |z_b - z_c|.
+
+At the leaf level, strong pairs are re-tested with r/R roles swapped
+(Carrier-Greengard, paper §2): passing pairs become P2L (the larger box's
+particles shift directly into the smaller box's local expansion) / M2P
+(the smaller box's multipole is evaluated at the larger box's points)
+instead of P2P.
+
+The strong-set recursion is sequential in l; everything after it is
+not. Every level's weak list plus the five leaf classes stack into ONE
+flattened ``(B, sum 4**l, 4S)`` array compacted by a single sort. The
+leaf level (3/4 of all boxes) classifies through the ``leaf_classify_impl``
+hook: ``leaf_classify_reference`` below, or the CUDA kernel of
+``repro_torch.kernels.topology``.
+
+The predicates use ``rounding.hypot_xla``/``rounding.fma_rn`` so the lists
+are bit-identical to ``repro.core.topology.build_connectivity`` (the
+reference contracts ``big + theta*small`` into one fused multiply-add).
+All tensors carry a leading problem axis B; ``margins`` is (B, 5) and
+``overflow`` (B,).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..config import FmmConfig
+from .rounding import fma_rn, hypot_xla
+from .tree import Tree
+
+INT_MAX = torch.iinfo(torch.int32).max
+
+#: Order of the per-class cap-margin vector (``Connectivity.margins``).
+MARGIN_CLASSES = ("strong", "weak", "p2p", "p2l", "m2p")
+
+
+class Connectivity(NamedTuple):
+    strong: tuple          # level l: (B, 4**l, strong_cap) int32, -1 pad
+    weak: tuple            # level l: (B, 4**l, weak_cap)
+    p2p: torch.Tensor      # leaf: (B, 4**L, strong_cap)
+    p2l: torch.Tensor      # leaf: (B, 4**L, strong_cap)
+    m2p: torch.Tensor      # leaf: (B, 4**L, strong_cap)
+    overflow: torch.Tensor  # (B,) int32; 0 iff no list overflowed
+    margins: torch.Tensor  # (B, 5) int32 per-class cap margins in
+    #                        MARGIN_CLASSES order: slots left on the fullest
+    #                        row (min over levels); negative = that many
+    #                        entries were dropped.
+
+
+def keyed(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Sort keys for row compaction: kept entries ascend, dropped sink."""
+    return torch.where(mask, vals, torch.full_like(vals, INT_MAX))
+
+
+def _compact(vals, mask, cap: int):
+    """Row-compact masked entries to the front, pad with -1, clip to cap.
+    Returns (compacted (B, nb, cap), margin (B,))."""
+    srt = torch.sort(keyed(vals, mask), dim=-1).values
+    count = mask.sum(dim=-1)
+    kept = srt[..., :cap]
+    out = torch.where(kept == INT_MAX, torch.full_like(kept, -1), kept)
+    margin = (cap - count.amax(dim=-1)).to(torch.int32)
+    return out, margin
+
+
+def theta_masks(cbx, cby, rb, ccx, ccy, rc, valid, theta: float):
+    """(weak_mask, strong_mask) on real coordinate planes; target planes
+    (B, nb), candidate planes (B, nb, C)."""
+    d = hypot_xla(cbx[..., None] - ccx, cby[..., None] - ccy)
+    big = torch.maximum(rb[..., None], rc)
+    small = torch.minimum(rb[..., None], rc)
+    wellsep = fma_rn(theta, small, big) <= theta * d
+    return valid & wellsep, valid & ~wellsep
+
+
+def swapped_masks(cbx, cby, rb, ccx, ccy, rc, strong_mask, cfg: FmmConfig):
+    """Leaf reclassification: (p2p, p2l, m2p) masks over the strong set."""
+    if not cfg.use_p2l_m2p:
+        zero = torch.zeros_like(strong_mask)
+        return strong_mask, zero, zero
+    d = hypot_xla(cbx[..., None] - ccx, cby[..., None] - ccy)
+    big = torch.maximum(rb[..., None], rc)
+    small = torch.minimum(rb[..., None], rc)
+    swapped = fma_rn(cfg.theta, big, small) <= cfg.theta * d
+    p2l = strong_mask & swapped & (rc > rb[..., None])     # source larger
+    m2p = strong_mask & swapped & (rc < rb[..., None])     # source smaller
+    p2p = strong_mask & ~(p2l | m2p)
+    return p2p, p2l, m2p
+
+
+def gather_geometry(cand, valid, centers, radii):
+    """(ccx, ccy, rc) of the candidate boxes (B, nb, C), zero where
+    invalid; ``centers``/``radii`` are the level's (B, nb) planes."""
+    B, nb, C = cand.shape
+    idx = torch.where(valid, cand, torch.zeros_like(cand)).long().view(B, -1)
+    zero = torch.zeros((), dtype=radii.dtype, device=radii.device)
+
+    def take(a):
+        return torch.where(valid, torch.gather(a, -1, idx).view(B, nb, C),
+                           zero)
+
+    return (take(centers.real.contiguous()), take(centers.imag.contiguous()),
+            take(radii))
+
+
+def leaf_classify_reference(cand, valid, centers, radii, cfg: FmmConfig):
+    """Leaf-level classification, plain torch (the ``leaf_classify_impl``
+    hook's reference; ``repro_torch.kernels.topology`` holds the kernel).
+
+    ``cand``/``valid``: (B, 4**L, 4S) candidate boxes (children of the
+    parent's strong set). Returns five (B, 4**L, 4S) int32 *keyed* arrays
+    (strong, weak, p2p, p2l, m2p): kept entries carry the candidate id,
+    dropped entries ``INT32_MAX``.
+    """
+    cbx, cby = centers.real, centers.imag
+    ccx, ccy, rc = gather_geometry(cand, valid, centers, radii)
+    weak_m, strong_m = theta_masks(cbx, cby, radii, ccx, ccy, rc, valid,
+                                   cfg.theta)
+    p2p_m, p2l_m, m2p_m = swapped_masks(cbx, cby, radii, ccx, ccy, rc,
+                                        strong_m, cfg)
+    return (keyed(cand, strong_m), keyed(cand, weak_m), keyed(cand, p2p_m),
+            keyed(cand, p2l_m), keyed(cand, m2p_m))
+
+
+def _batched_compact(groups):
+    """ONE sort for every (keys, cap) group: stack the same-width keyed
+    arrays along the box axis, sort once along the slot axis, slice each
+    group at its own cap. Returns (lists, margins (B,) each)."""
+    keys = torch.cat([k for k, _ in groups], dim=1)
+    srt = torch.sort(keys, dim=-1).values
+    counts = (keys != INT_MAX).sum(dim=-1)
+    lists, margins = [], []
+    row = 0
+    for k, cap in groups:
+        nb = k.shape[1]
+        kept = srt[:, row:row + nb, :cap]
+        lists.append(torch.where(kept == INT_MAX, torch.full_like(kept, -1),
+                                 kept))
+        margins.append((cap - counts[:, row:row + nb].amax(dim=-1))
+                       .to(torch.int32))
+        row += nb
+    return lists, margins
+
+
+def _overflow_of(margins: torch.Tensor) -> torch.Tensor:
+    """Dropped-entry count per problem implied by (B, 5) margins."""
+    return (-torch.clamp(margins.amin(dim=-1), max=0)).to(torch.int32)
+
+
+def build_connectivity(tree: Tree, cfg: FmmConfig,
+                       leaf_classify_impl=None) -> Connectivity:
+    """Interaction lists for every level of B problems.
+
+    ``leaf_classify_impl(cand, valid, centers, radii, cfg)`` optionally
+    replaces the leaf-level strong/weak/swapped-theta classification (the
+    CUDA topology kernel); ``None`` runs the plain reference.
+    """
+    S, W = cfg.strong_cap, cfg.weak_cap
+    L = cfg.nlevels
+    B = tree.z.shape[0]
+    dev = tree.z.device
+    classify = (leaf_classify_impl if leaf_classify_impl is not None
+                else leaf_classify_reference)
+
+    root = torch.full((B, 1, S), -1, dtype=torch.int32, device=dev)
+    root[..., 0] = 0                                   # root: self
+    strong = [root]
+    weak = [torch.full((B, 1, W), -1, dtype=torch.int32, device=dev)]
+    root_strong_margin = torch.full((B,), S - 1, dtype=torch.int32,
+                                    device=dev)
+    root_weak_margin = torch.full((B,), W, dtype=torch.int32, device=dev)
+
+    if L == 0:
+        # Degenerate 1-box problem: the root strong list is *defined* as
+        # self, so only the swapped-theta reclassification applies.
+        st = strong[0]
+        valid = st >= 0
+        c0, r0 = tree.centers[0], tree.radii[0]
+        ccx, ccy, rc = gather_geometry(st, valid, c0, r0)
+        p2p_m, p2l_m, m2p_m = swapped_masks(c0.real, c0.imag, r0, ccx, ccy,
+                                            rc, valid, cfg)
+        (p2p, p2l, m2p), class_margins = _batched_compact(
+            [(keyed(st, p2p_m), S), (keyed(st, p2l_m), S),
+             (keyed(st, m2p_m), S)])
+        margins = torch.stack([root_strong_margin, root_weak_margin]
+                              + class_margins, dim=-1)
+        return Connectivity(strong=tuple(strong), weak=tuple(weak),
+                            p2p=p2p, p2l=p2l, m2p=m2p,
+                            overflow=_overflow_of(margins), margins=margins)
+
+    weak_keys = []
+    strong_margins = [root_strong_margin]
+    leaf_keys = None
+    four = torch.arange(4, dtype=torch.int32, device=dev)
+    for l in range(1, L + 1):
+        nb = 4**l
+        parent = torch.arange(nb, device=dev) // 4
+        parent_strong = strong[l - 1][:, parent]               # (B, nb, S)
+        pvalid = parent_strong >= 0
+        cand = (torch.where(pvalid, parent_strong,
+                            torch.zeros_like(parent_strong))[..., None] * 4
+                + four).view(B, nb, 4 * S)
+        valid = pvalid.repeat_interleave(4, dim=-1)
+
+        if l == L:
+            leaf_keys = classify(cand, valid, tree.centers[l],
+                                 tree.radii[l], cfg)
+            weak_keys.append(leaf_keys[1])
+            continue
+
+        c = tree.centers[l]
+        ccx, ccy, rc = gather_geometry(cand, valid, c, tree.radii[l])
+        weak_mask, strong_mask = theta_masks(c.real, c.imag, tree.radii[l],
+                                             ccx, ccy, rc, valid, cfg.theta)
+        weak_keys.append(keyed(cand, weak_mask))
+        # the recursion consumes strong[l] next iteration: compact in-loop
+        s_l, s_mg = _compact(cand, strong_mask, S)
+        strong.append(s_l)
+        strong_margins.append(s_mg)
+
+    # ---- batched compaction: one sort over the flattened stack ----------
+    strong_key, _, p2p_key, p2l_key, m2p_key = leaf_keys
+    groups = ([(k, W) for k in weak_keys]
+              + [(strong_key, S), (p2p_key, S), (p2l_key, S), (m2p_key, S)])
+    lists, group_margins = _batched_compact(groups)
+    weak_lists, (strong_L, p2p, p2l, m2p) = lists[:L], lists[L:]
+    weak_margins, tail = group_margins[:L], group_margins[L:]
+    strong.append(strong_L)
+    weak.extend(weak_lists)
+
+    margins = torch.stack([
+        torch.stack(strong_margins + [tail[0]], dim=-1).amin(dim=-1),
+        torch.stack([root_weak_margin] + weak_margins, dim=-1).amin(dim=-1),
+        tail[1], tail[2], tail[3],
+    ], dim=-1)
+    return Connectivity(strong=tuple(strong), weak=tuple(weak),
+                        p2p=p2p, p2l=p2l, m2p=m2p,
+                        overflow=_overflow_of(margins), margins=margins)

@@ -1,0 +1,71 @@
+"""Typed failure taxonomy for the FMM pipeline.
+
+Every loud failure path in the solver raises one of these instead of a
+bare ``RuntimeError``/``ValueError``, so callers can branch on *what*
+failed:
+
+  ValidationError      caller handed us malformed arguments (shape,
+                       dtype, batch layout) — always the caller's bug
+  CapOverflowError     the connectivity caps dropped interactions — the
+                       answer would be silently wrong; recoverable by
+                       raising the caps
+  NonFiniteInputError  z or q contain NaN/Inf — garbage in; fail before
+                       trusting anything computed from it
+  NonFiniteOutputError phi contains NaN/Inf on finite input — a kernel
+                       or expansion bug
+  DeviceUnavailableError  the solver was asked for a device this process
+                       cannot use (no CUDA card); there is no silent
+                       fall-back to the CPU
+
+The reference's guard and serving errors arrive with the port of
+``solver/guard.py`` and ``serve/``.
+
+The classes multiply-inherit the builtin a plain implementation would
+raise (``ValueError`` for validation, ``RuntimeError`` for overflow), so
+``except RuntimeError`` call sites keep working.
+"""
+from __future__ import annotations
+
+
+class FmmError(Exception):
+    """Base class of every typed FMM failure."""
+
+
+class ValidationError(FmmError, ValueError):
+    """Malformed solver arguments (shape / dtype / batch layout)."""
+
+
+class ShapeError(ValidationError):
+    """Argument shape does not match the solver's static config."""
+
+
+class DTypeError(ValidationError, TypeError):
+    """Argument dtype confusion (real positions, precision loss, ...)."""
+
+
+class CapOverflowError(FmmError, RuntimeError):
+    """Connectivity caps overflowed: interactions would be dropped.
+
+    Carries ``margins`` — the per-class cap margins (slots left before
+    overflow; negative = entries dropped) keyed by
+    ``repro_torch.core.fmm.HEALTH_CLASSES`` — and the scalar ``overflow``.
+    """
+
+    def __init__(self, message: str, *, margins: dict | None = None,
+                 overflow: int = 0):
+        super().__init__(message)
+        self.margins = dict(margins or {})
+        self.overflow = int(overflow)
+
+
+class NonFiniteInputError(FmmError, ValueError):
+    """z or q contain NaN/Inf — refusing to compute on garbage."""
+
+
+class NonFiniteOutputError(FmmError, ArithmeticError):
+    """phi contains NaN/Inf on finite input (kernel/expansion fault)."""
+
+
+class DeviceUnavailableError(FmmError, RuntimeError):
+    """The requested device is not usable in this process (e.g. the
+    default ``cuda`` device on a machine without a CUDA card)."""

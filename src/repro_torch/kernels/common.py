@@ -1,0 +1,74 @@
+"""Shared helpers around the CUDA kernels.
+
+Kernels take separate real/imaginary planes and *dense per-leaf* particle
+planes of shape (B, 4**L, n_max): leaf b's particles in rank order,
+zero-charge padding in the unused slots. Unlike the TPU layout there is
+no trailing all-zero dummy row and no 128-lane padding: a kernel skips a
+masked (-1) list entry instead of reading a dummy row, and planes are
+exactly n_max = max leaf population wide (64 at the paper's N = 2^20).
+
+``pairwise_tile`` and ``l2p_horner`` are the plain torch forms of the
+kernels' per-target math (the twins of ``repro.kernels.common``'s).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.config import FmmConfig
+from ..core.fmm import from_leaves, leaf_planes
+from ..core.topology import leaf_layout
+
+
+def dense_leaf_arrays(z: torch.Tensor, q: torch.Tensor, cfg: FmmConfig):
+    """Gather (B, N) rank-sorted particles into (B, 4**L, n_max) real
+    planes (zr, zi, qr, qi) of the config's dtype; padded slots hold
+    z = 0 and q = 0."""
+    rdt = cfg.torch_real
+    zl = leaf_planes(z, cfg)
+    ql = leaf_planes(q, cfg)
+    return tuple(x.to(rdt).contiguous()
+                 for x in (zl.real, zl.imag, ql.real, ql.imag))
+
+
+def dense_rank_planes(cfg: FmmConfig, device) -> torch.Tensor:
+    """(4**L, n_max) int32 global particle ranks per dense leaf slot, -1
+    in padded slots — the plane the kernels compare to exclude
+    self-interaction by particle identity, not by position."""
+    return leaf_layout(cfg.n, cfg.nlevels, device).ranks
+
+
+def scatter_from_leaves(values: torch.Tensor, cfg: FmmConfig) -> torch.Tensor:
+    """(B, 4**L, n_max) dense leaf planes -> (B, N) rank order (each rank
+    owns one slot, so this is a gather: no atomics, deterministic on
+    CUDA)."""
+    return from_leaves(values, cfg)
+
+
+def pairwise_tile(kernel: str, tzr, tzi, trk, szr, szi, qr, qi, srk):
+    """One source tile against the targets: (..., n_t) targets and
+    (..., n_s) sources -> the (..., n_t) (real, imag) contribution,
+    excluding pairs of equal rank and padded (rank -1) sources."""
+    dx = szr[..., None, :] - tzr[..., :, None]     # z_src - z_tgt
+    dy = szi[..., None, :] - tzi[..., :, None]
+    qr, qi = qr[..., None, :], qi[..., None, :]
+    d2 = dx * dx + dy * dy
+    ok = (srk[..., None, :] >= 0) & (srk[..., None, :] != trk[..., :, None])
+    zero = torch.zeros((), dtype=d2.dtype, device=d2.device)
+    if kernel == "harmonic":
+        inv = torch.where(ok, 1.0 / torch.where(ok, d2, zero + 1), zero)
+        return (((qr * dx + qi * dy) * inv).sum(dim=-1),
+                ((qi * dx - qr * dy) * inv).sum(dim=-1))
+    lr = torch.where(ok, 0.5 * torch.log(torch.where(ok, d2, zero + 1)), zero)
+    li = torch.where(ok, torch.atan2(-dy, -dx), zero)
+    return ((qr * lr - qi * li).sum(dim=-1), (qr * li + qi * lr).sum(dim=-1))
+
+
+def l2p_horner(p: int, br, bi, tr, ti):
+    """Local-expansion Horner at pre-centered particles: (..., P)
+    coefficient planes and (..., n) positions -> (..., n) (real, imag)."""
+    accr = torch.zeros_like(tr) + br[..., p:p + 1]
+    acci = torch.zeros_like(ti) + bi[..., p:p + 1]
+    for j in range(p - 1, -1, -1):
+        accr, acci = (accr * tr - acci * ti + br[..., j:j + 1],
+                      accr * ti + acci * tr + bi[..., j:j + 1])
+    return accr, acci

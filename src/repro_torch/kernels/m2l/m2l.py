@@ -1,0 +1,82 @@
+"""Level-fused M2L translation: CUDA kernel + its plain torch version.
+
+The kernel (``csrc/m2l.cu``) replaces the reference's Pallas kernel
+``repro/kernels/m2l/m2l.py:_m2l_pallas``. Operands are real/imaginary
+planes with a leading problem axis B, over a level-agnostic box axis NB
+(all levels flattened, see ``ops.m2l_fused_apply``):
+
+  weak        (B, NB, W) int32 weak lists (-1 masked), already offset
+              onto the flat box axis
+  ar, ai      (B, NB, P) radius-normalized multipoles, P = p + 1
+  prer/prei   (B, NB, W) per-slot rho_s / r
+  postr/posti (B, NB, W) per-slot -rho_t / r
+  logr/logi   (B, NB, W) per-slot log r (log kernel only)
+  h           (P, P) the constant Hankel matrix H[l, k]
+
+and the result is (outr, outi), (B, NB, P): the summed normalized local
+contributions per target box.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..build import CudaLibrary, I, P, check_tensors, on_cpu
+
+LIB = CudaLibrary("m2l", {
+    f"m2l_{s}": [P] * 10 + [I, I, I, I, I, P, P, P] for s in ("f32", "f64")})
+
+#: Weak-list slots per step of the plain version (bounds its working set).
+PLAIN_CHUNK = 16
+
+
+def _pows(x: torch.Tensor, n: int) -> torch.Tensor:
+    out = [torch.ones_like(x)]
+    for _ in range(n - 1):
+        out.append(out[-1] * x)
+    return torch.stack(out, dim=-1)
+
+
+def m2l_plain(weak, ar, ai, prer, prei, postr, posti, h, logr=None,
+              logi=None):
+    """Plain torch version of the kernel (same operands and result)."""
+    B, NB, W = weak.shape
+    Pn = ar.shape[-1]
+    a_all = torch.complex(ar, ai)
+    ht = h.to(a_all.dtype).T
+    out = torch.zeros_like(a_all)
+    zero = torch.zeros((), dtype=a_all.dtype, device=a_all.device)
+    bidx = torch.arange(B, device=weak.device).view(B, 1, 1)
+    for s in range(0, W, PLAIN_CHUNK):
+        wk = weak[..., s:s + PLAIN_CHUNK].long()
+        mask = wk >= 0
+        a = a_all[bidx, torch.where(mask, wk, torch.zeros_like(wk))]
+        sl = slice(s, s + PLAIN_CHUNK)
+        pre = _pows(torch.complex(prer[..., sl], prei[..., sl]), Pn)
+        post = _pows(torch.complex(postr[..., sl], posti[..., sl]), Pn)
+        b_hat = (a * pre) @ ht
+        contrib = b_hat * post
+        if logr is not None:
+            lg = torch.complex(logr[..., sl], logi[..., sl])
+            contrib[..., 0] = contrib[..., 0] + a[..., 0] * lg
+        out = out + torch.where(mask[..., None], contrib, zero).sum(dim=2)
+    return out.real.contiguous(), out.imag.contiguous()
+
+
+def m2l_cuda(weak, ar, ai, prer, prei, postr, posti, h, logr=None,
+             logi=None):
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    if on_cpu(weak):
+        return m2l_plain(weak, ar, ai, prer, prei, postr, posti, h, logr,
+                         logi)
+    B, NB, W = weak.shape
+    Pn = ar.shape[-1]
+    dt = ar.dtype
+    check_tensors(weak, dtype=torch.int32)
+    check_tensors(ar, ai, prer, prei, postr, posti, h, logr, logi, dtype=dt,
+                  device=weak.device)
+    outr = torch.empty((B, NB, Pn), dtype=dt, device=weak.device)
+    outi = torch.empty_like(outr)
+    sfx = "f64" if dt == torch.float64 else "f32"
+    LIB.launch(f"m2l_{sfx}", weak, ar, ai, prer, prei, postr, posti, logr,
+               logi, h, B, NB, W, Pn, int(logr is not None), outr, outi)
+    return outr, outi

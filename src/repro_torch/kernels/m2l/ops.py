@@ -1,0 +1,77 @@
+"""Wiring of the M2L kernel into the FMM downward pass.
+
+``m2l_fused_apply`` is the ``m2l_fused_impl`` hook: it flattens *all*
+levels of the downward pass into one (B, sum 4^l, W) box axis with static
+per-level offsets and issues exactly one kernel launch for the whole
+downward M2L of B problems.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ...core import expansions as E
+from ...core.config import FmmConfig
+from ...core.fmm import rows
+from .m2l import m2l_cuda
+
+
+def fused_levels(cfg: FmmConfig) -> list[int]:
+    """Levels the fused downward M2L covers (1..L; just the root if L=0)."""
+    return list(range(1, cfg.nlevels + 1)) if cfg.nlevels > 0 else [0]
+
+
+def hankel(cfg: FmmConfig, device) -> torch.Tensor:
+    """The (p+1, p+1) constant M2L matrix in the config's real dtype."""
+    return torch.as_tensor(E.m2l_matrix(cfg.p), dtype=cfg.torch_real,
+                           device=device)
+
+
+def m2l_operands(mult, weak, centers, cfg: FmmConfig, rho):
+    """Stage the kernel operands of the fused M2L from the per-level
+    sequences (index = level, each with a leading B axis): every level's
+    boxes concatenated into one flat axis — the weak lists are
+    level-local, so each level's entries shift by its static offset —
+    and the per-slot ratio planes rho_s/r and -rho_t/r (plus log r for
+    the log kernel). Returns (operands of ``m2l_cuda``, level offsets)."""
+    levels = fused_levels(cfg)
+    offs = np.concatenate([[0], np.cumsum([4**l for l in levels])])
+    weak_flat = torch.cat(
+        [torch.where(weak[l] >= 0, weak[l] + int(offs[i]),
+                     torch.full_like(weak[l], -1))
+         for i, l in enumerate(levels)], dim=1).contiguous()
+    mult_flat = torch.cat([mult[l] for l in levels], dim=1)
+    c = torch.cat([centers[l] for l in levels], dim=1)
+    rh = torch.cat([rho[l] for l in levels], dim=1)
+
+    rdt = cfg.torch_real
+    mask = weak_flat >= 0
+    src = torch.where(mask, weak_flat, torch.zeros_like(weak_flat)).long()
+    one = torch.ones((), dtype=c.dtype, device=c.device)
+    zero = torch.zeros((), dtype=rh.dtype, device=rh.device)
+    r = torch.where(mask, c[..., None] - rows(c, src), one)
+    pre = torch.where(mask, rows(rh, src), zero) / r      # rho_s / r
+    post = -rh[..., None] / r                             # -rho_t / r
+
+    def plane(x):
+        return x.to(rdt).contiguous()
+
+    logs = (None, None)
+    if cfg.kernel == "log":
+        lg = torch.log(r)                                 # masked slots: 0
+        logs = (plane(lg.real), plane(lg.imag))
+    args = (weak_flat, plane(mult_flat.real), plane(mult_flat.imag),
+            plane(pre.real), plane(pre.imag), plane(post.real),
+            plane(post.imag), hankel(cfg, weak_flat.device), *logs)
+    return args, offs
+
+
+def m2l_fused_apply(mult, weak, centers, cfg: FmmConfig, rho):
+    """Drop-in ``m2l_fused_impl`` for ``core.fmm.downward_fused``: ONE
+    kernel launch for the whole downward M2L of B problems. Returns the
+    per-level (B, 4**l, p+1) normalized local contributions."""
+    args, offs = m2l_operands(mult, weak, centers, cfg, rho)
+    outr, outi = m2l_cuda(*args)
+    out = torch.complex(outr, outi).to(cfg.torch_complex)
+    return [out[:, int(offs[i]):int(offs[i + 1])]
+            for i in range(len(offs) - 1)]

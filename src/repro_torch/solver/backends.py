@@ -1,0 +1,85 @@
+"""Per-phase backend registry for the FMM main path.
+
+The pipeline in ``repro_torch.core.fmm`` exposes the hooks the main path
+swaps kernels into. A ``Backend`` bundles one implementation per hook;
+the registry maps names to backends:
+
+  "reference"  plain torch sweeps of ``repro_torch.core.fmm`` (every hook
+               None -> the core path runs its own sweep)
+  "cuda"       the hand-written CUDA kernels of ``repro_torch.kernels``:
+               leaf classify, level-fused M2L, P2L and the fused
+               evaluation phase. Each wrapper launches its kernel on CUDA
+               tensors and runs its plain version only on CPU tensors.
+  "auto"       "cuda" for a CUDA device; "reference" only when the
+               caller asked for the CPU
+
+Every hook takes tensors with a leading problem axis B, so a backend
+serves ``apply`` (B = 1) and ``apply_batched`` alike — on "cuda", B
+problems are one launch per kernel.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+
+PhaseImpl = Optional[Callable]
+
+
+@dataclasses.dataclass(frozen=True)
+class Backend:
+    """Named bundle of per-phase implementations (None -> core sweep)."""
+
+    name: str
+    m2l_fused: PhaseImpl = None
+    p2l: PhaseImpl = None
+    eval_fused: PhaseImpl = None
+    leaf_classify: PhaseImpl = None
+
+    def phase_impls(self) -> dict:
+        """kwargs for ``fmm_evaluate`` selecting this backend's hooks."""
+        return {"m2l_fused_impl": self.m2l_fused, "p2l_impl": self.p2l,
+                "eval_fused_impl": self.eval_fused}
+
+    def topology_impls(self) -> dict:
+        """kwargs for ``fmm_build`` selecting this backend's topology hook."""
+        return {"leaf_classify_impl": self.leaf_classify}
+
+
+_REGISTRY: dict[str, Backend] = {}
+
+
+def register_backend(backend: Backend) -> Backend:
+    """Register (or replace) a backend under ``backend.name``."""
+    _REGISTRY[backend.name] = backend
+    return backend
+
+
+def available_backends() -> list[str]:
+    return sorted(_REGISTRY) + ["auto"]
+
+
+def get_backend(name: str, device: torch.device) -> Backend:
+    """Resolve a backend name; "auto" picks by ``device``."""
+    if name == "auto":
+        return _REGISTRY["cuda" if device.type == "cuda" else "reference"]
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise KeyError(f"unknown backend {name!r}; available: "
+                       f"{available_backends()}") from None
+
+
+def _make_cuda() -> Backend:
+    from ..kernels import (eval_fused_apply, leaf_classify_cuda,
+                           m2l_fused_apply, p2l_apply)
+
+    return Backend(name="cuda", m2l_fused=m2l_fused_apply, p2l=p2l_apply,
+                   eval_fused=eval_fused_apply,
+                   leaf_classify=leaf_classify_cuda)
+
+
+register_backend(Backend(name="reference"))
+register_backend(_make_cuda())
