@@ -6,7 +6,7 @@
 Runs top to bottom and exits nonzero on the first failure:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. builds the four CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together) and prints each
    kernel's registers, shared memory and spills;
 3. kernel phase: on the operands of the N = 2^20, p = 17 plans (paper
@@ -14,18 +14,30 @@ Runs top to bottom and exits nonzero on the first failure:
    until no list overflows), in f32 and f64, holds each kernel against
    its plain torch version on the same inputs (classify bit-identical;
    the others per element within F64_TOL in f64 and F32_KERNEL_TOL in
-   f32), checks that a second launch is bitwise equal to the first,
-   prints how many list entries each plan occupies, and times kernel and
-   plain version with CUDA events at the uniform plan;
+   f32; the direct N-body sum on N_SAMPLE of the particles as targets
+   against all 2^20 sources), checks that a second launch is bitwise
+   equal to the first, prints how many list entries each plan occupies,
+   and times kernel and plain version with CUDA events at the uniform
+   plan;
 4. main path: ``FmmSolver.build(fmm_config(1 << 20, p=17))`` on the
    default device and ``apply_checked`` on uniform, normal and layer
-   particles (seed 0), in f32 and f64: every kernel counter must rise by
-   exactly one per apply; accuracy against ``direct_potential`` on 4096
-   sampled targets over all 2^20 sources; in f64 the "cuda" and
-   "reference" backends must agree within 1e-10;
-5. batched: ``apply_batched`` with B = 4 at N = 2^20 in f32 — one launch
-   per kernel, each row equal to that problem's ``apply``;
-6. prints one JSON line with every kernel's launches, error, times and
+   particles (seed 0), in f32 and f64: the four main-path kernels launch
+   exactly once per apply and the per-phase and N-body kernels never;
+   accuracy against ``direct_potential`` on 4096 sampled targets over
+   all 2^20 sources; in f64 the "cuda" and "reference" backends must
+   agree within 1e-10;
+5. per-phase path: the "cuda" backend without its fused hooks,
+   registered as "cuda-phases", on the same problems: M2L once per
+   level, L2P and P2P once, classify and P2L once, the fused evaluation
+   never; the same accuracy bounds; in f64 phi within 1e-10 of the main
+   path's and the reference backend's;
+6. batched: ``apply_batched`` with B = 4 at N = 2^20 in f32 on both
+   paths — the same launches as one apply, each row equal to that
+   problem's ``apply``;
+7. direct baseline: ``nbody_direct`` all-pairs at N = 2^20 in f32 and
+   f64 (one launch each), timed beside the FMM apply, and the paper's
+   Fig. 5.5 sweep N = 2^9 .. 2^20 with the break-even N;
+8. prints one JSON line with every kernel's launches, error, times and
    bound, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -65,7 +77,18 @@ F64_TOL = 1e-10
 # high orders are sums of many terms of both signs that cancel, so its
 # level is the highest. A dropped or wrong term moves the elements it
 # touches by far more than any of these limits.
-F32_KERNEL_TOL = {"m2l": 2e-5, "p2l": 1e-4, "eval_fused": 1e-5}
+F32_KERNEL_TOL = {"m2l": 2e-5, "p2l": 1e-4, "eval_fused": 1e-5, "p2p": 1e-5,
+                  "l2p": 1e-5, "nbody": 1e-4}
+# The direct N-body sum of a target runs over all 2^20 sources, whose
+# terms cancel: phi is far smaller than the sum of the terms' magnitudes
+# S_i = sum_j |q_j| / |x_j - y_i|, and an f32 sum's rounding error grows
+# with S_i, not with |phi_i|. So in f32 the N-body gate scales each
+# target's error by S_i (in f64 by |phi| plus its mean, as every other
+# kernel).
+# The per-phase backend: the "cuda" backend with its fused hooks removed.
+PHASES = "cuda-phases"
+# Fig. 5.5 sweep of the direct baseline against the FMM
+SWEEP = [1 << k for k in range(9, 21)]
 # accuracy bounds of the JAX reference's own tests
 # (tests/test_fmm_accuracy.py:29 in f64, :41 in f32)
 ACC_BOUND = {"f64": 2e-6, "f32": 5e-4}
@@ -84,7 +107,26 @@ KERNELS = {
             "src/repro/kernels/eval/p2l.py:120"),
     "eval_fused": ("src/repro_torch/kernels/csrc/eval_fused.cu",
                    "src/repro/kernels/eval/fused.py:140"),
+    "p2p": ("src/repro_torch/kernels/csrc/p2p.cu",
+            "src/repro/kernels/p2p/p2p.py:74"),
+    "l2p": ("src/repro_torch/kernels/csrc/l2p.cu",
+            "src/repro/kernels/l2p/l2p.py:33"),
+    "nbody": ("src/repro_torch/kernels/csrc/nbody.cu",
+              "src/repro/kernels/nbody/nbody.py:40"),
 }
+
+
+def want_counts(**kw) -> dict:
+    """Launches per kernel of one main-path apply, with ``kw`` changed."""
+    want = {"classify": 1, "m2l": 1, "p2l": 1, "eval_fused": 1, "p2p": 0,
+            "l2p": 0, "nbody": 0}
+    want.update(kw)
+    return want
+
+
+def phase_counts(cfg) -> dict:
+    """Launches per kernel of one per-phase apply: M2L once per level."""
+    return want_counts(m2l=max(cfg.nlevels, 1), eval_fused=0, p2p=1, l2p=1)
 
 
 def check(cond, msg: str) -> None:
@@ -145,10 +187,10 @@ def rel_err(a, b) -> float:
     return float((a - b).abs().max()) / (den if den > 0 else 1.0)
 
 
-def time_cuda(fn, reps: int, torch) -> float:
+def time_cuda(fn, reps: int, torch, warmup: int = 2) -> float:
     """Median milliseconds of ``reps`` calls, each between CUDA events,
-    after two warm-up calls."""
-    for _ in range(2):
+    after ``warmup`` warm-up calls."""
+    for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
@@ -193,6 +235,21 @@ def work_of(name: str, args, kwargs, dt: str) -> tuple[float, float]:
         nbytes = (lists.numel() * 4 + 3 * args[1].numel() * sz
                   + 4 * xr.numel() * sz + 2 * args[1].numel() * (p + 1) * sz)
         return float(entries * n * per_particle), float(nbytes)
+    if name == "p2p":
+        lists, zr = args[0], args[1]
+        B, nb, n = zr.shape
+        pairs = int((lists >= 0).sum()) * n * n
+        nbytes = lists.numel() * 4 + 6 * zr.numel() * sz + args[5].numel() * 4
+        return 14.0 * pairs, float(nbytes)
+    if name == "l2p":
+        br, tr, rk = args[0], args[2], args[4]
+        p = kwargs["p"]
+        nbytes = 2 * br.numel() * sz + 4 * tr.numel() * sz + rk.numel() * 4
+        return float(tr.numel() * 8 * p), float(nbytes)
+    if name == "nbody":
+        n, m = args[0].numel(), args[2].numel()
+        # the targets are sources too: each target's own pair drops out
+        return 14.0 * (n * m - n), float((4 * n + 4 * m) * sz)
     # eval_fused
     p2p, m2p, zr = args[0], args[1], args[2]
     p = kwargs["p"]
@@ -227,8 +284,9 @@ def capture(cfg, z, q, torch):
     from repro_torch.core.fmm import fmm_build, fmm_evaluate
     from repro_torch.core.topology import MARGIN_CLASSES
     from repro_torch.kernels import (eval_fused_apply, eval_operands,
-                                     leaf_classify_cuda, m2l_fused_apply,
-                                     m2l_operands, p2l_apply, p2l_operands)
+                                     l2p_operands, leaf_classify_cuda,
+                                     m2l_fused_apply, m2l_operands,
+                                     p2l_apply, p2l_operands, p2p_operands)
 
     cap = {}
 
@@ -246,6 +304,8 @@ def capture(cfg, z, q, torch):
 
     def eval_rec(local, mult_leaf, tree, conn, c):
         cap["eval_fused"] = eval_operands(local, mult_leaf, tree, conn, c)
+        cap["p2p"] = p2p_operands(tree, conn, c)
+        cap["l2p"] = l2p_operands(local, tree, c)
         return eval_fused_apply(local, mult_leaf, tree, conn, c)
 
     while True:
@@ -257,14 +317,39 @@ def capture(cfg, z, q, torch):
         cfg = grow_caps(cfg, margins)
     fmm_evaluate(plan, cfg, m2l_fused_impl=m2l_rec, p2l_impl=p2l_rec,
                  eval_fused_impl=eval_rec)
+    # the direct N-body sum: N_SAMPLE of the particles (in rank order) as
+    # targets against all of them as sources, in the config's precision
+    t = plan.tree
+    pick = torch.randperm(cfg.n, generator=torch.Generator().manual_seed(
+        SEED))[:N_SAMPLE].to(t.z.device)
+    zr, zi, qr, qi = (x.to(cfg.torch_real).contiguous() for x in (
+        t.z[0].real, t.z[0].imag, t.q[0].real, t.q[0].imag))
+    cap["nbody"] = ((zr[pick], zi[pick], zr, zi, qr, qi), {})
     torch.cuda.synchronize()
     conn = plan.conn
     occupied = {"pairs": int(cap["classify"][0][1].sum()),
                 "weak": sum(int((w >= 0).sum()) for w in conn.weak),
                 "p2p": int((conn.p2p >= 0).sum()),
                 "p2l": int((conn.p2l >= 0).sum()),
-                "m2p": int((conn.m2p >= 0).sum())}
+                "m2p": int((conn.m2p >= 0).sum()),
+                "pairs_nbody": N_SAMPLE * cfg.n - N_SAMPLE}
     return cfg, cap, occupied
+
+
+def magnitude_sum(tzr, tzi, szr, szi, qr, qi, torch) -> "torch.Tensor":
+    """S_i = sum_{j : x_j != y_i} |q_j| / |x_j - y_i| per target, in f64
+    (the scale of an all-pairs sum's rounding error)."""
+    tzr, tzi = tzr.double(), tzi.double()
+    qa = torch.hypot(qr.double(), qi.double())
+    out = torch.zeros_like(tzr)
+    chunk = max(1, (1 << 24) // tzr.numel())
+    for s in range(0, szr.numel(), chunk):
+        dx = szr[None, s:s + chunk].double() - tzr[:, None]
+        dy = szi[None, s:s + chunk].double() - tzi[:, None]
+        r = torch.hypot(dx, dy)
+        out += torch.where(r > 0, qa[None, s:s + chunk] / r.clamp_min(1e-300),
+                           torch.zeros_like(r)).sum(dim=-1)
+    return out
 
 
 def upcast(args, kwargs, torch):
@@ -282,11 +367,15 @@ def kernel_phase(dt: str, torch) -> list[dict]:
     from repro_torch.configs import fmm_config
     from repro_torch.data import particles
     from repro_torch.kernels import (eval_fused_cuda, eval_fused_plain,
-                                     leaf_classify_cuda, leaf_classify_plain,
-                                     m2l_cuda, m2l_plain, p2l_cuda, p2l_plain)
+                                     l2p_cuda, l2p_plain, leaf_classify_cuda,
+                                     leaf_classify_plain, m2l_cuda,
+                                     m2l_plain, nbody_cuda, nbody_plain,
+                                     p2l_cuda, p2l_plain, p2p_cuda,
+                                     p2p_plain)
 
     entries_of = {"classify": ("pairs",), "m2l": ("weak",), "p2l": ("p2l",),
-                  "eval_fused": ("p2p", "m2p")}
+                  "eval_fused": ("p2p", "m2p"), "p2p": ("p2p",),
+                  "l2p": (), "nbody": ("pairs_nbody",)}
     rows = {}
     for dist in DISTS:
         z, q = particles(dist, N, SEED)
@@ -302,6 +391,12 @@ def kernel_phase(dt: str, torch) -> list[dict]:
                     lambda a, k: p2l_plain(*a, **k)),
             "eval_fused": (lambda a, k: eval_fused_cuda(*a, **k),
                            lambda a, k: eval_fused_plain(*a, **k)),
+            "p2p": (lambda a, k: p2p_cuda(*a, **k),
+                    lambda a, k: p2p_plain(*a, **k)),
+            "l2p": (lambda a, k: l2p_cuda(*a, **k),
+                    lambda a, k: l2p_plain(*a, **k)),
+            "nbody": (lambda a, k: nbody_cuda(*a),
+                      lambda a, k: nbody_plain(*a)),
         }
         for name, (kern, plain) in impls.items():
             args, kwargs = cap[name]
@@ -319,14 +414,30 @@ def kernel_phase(dt: str, torch) -> list[dict]:
                 err, abs_err, note = 0.0, 0.0, "bit-identical"
             else:
                 kc, pc = torch.complex(*first), torch.complex(*ref)
-                err = scaled_err(kc, pc)
+                scale = None
+                if name == "nbody":
+                    # one column: every target's |phi| beside the mean
+                    kc, pc = kc[:, None], pc[:, None]
+                    if dt == "f32":
+                        scale = magnitude_sum(*args, torch)[:, None]
+                err = (scaled_err(kc, pc) if scale is None else
+                       float(((kc - pc).abs() / scale).max()))
                 abs_err = float((kc - pc).abs().max())
                 tol = F64_TOL if dt == "f64" else F32_KERNEL_TOL[name]
                 note = f"scaled_err={err:.3e} (limit {tol:g})"
+                if scale is not None:
+                    note = ("err/sum|q|/|x-y| = " + f"{err:.3e} (limit "
+                            f"{tol:g}), scaled_err={scaled_err(kc, pc):.3e}")
                 if dt == "f32":
                     wide = torch.complex(*plain(*upcast(args, kwargs, torch)))
+                    if name == "nbody":
+                        wide = wide[:, None]
+                    lvl = (scaled_err(pc.to(wide.dtype), wide)
+                           if scale is None else float(
+                               ((pc.to(wide.dtype) - wide).abs()
+                                / scale).max()))
                     note += (f", f32 rounding of the plain version "
-                             f"{scaled_err(pc.to(wide.dtype), wide):.3e}")
+                             f"{lvl:.3e}")
                     del wide
                 check(err <= tol, f"{tag}: kernel vs plain {err:.3e} > {tol}")
             print(f"kernel {tag}: {entries}; {note}; abs_err={abs_err:.3e}",
@@ -340,13 +451,18 @@ def kernel_phase(dt: str, torch) -> list[dict]:
                 continue
             ms = time_cuda(lambda: kern(args, kwargs), KERNEL_REPS, torch)
             plain_ms = time_cuda(lambda: plain(args, kwargs), PLAIN_REPS,
-                                 torch)
+                                 torch, warmup=1)
             flops, nbytes = work_of(name, args, kwargs, dt)
             t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES
             row.update(ms=ms, plain_ms=plain_ms,
                        bound_ms=1e3 * max(t_ops, t_bytes),
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
                        library_ms=None)
+            if name == "nbody":
+                # the all-pairs N = 2^20 time and bound replace these in
+                # the direct-baseline phase; the plain version only runs
+                # at this shape
+                row.update(plain_shape=[N_SAMPLE, N], ms_plain_shape=ms)
             print(f"time {tag}: ms={ms:.4f} plain_ms={plain_ms:.3f} "
                   f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; "
                   f"{flops:.3e} flop, {nbytes:.3e} B)", flush=True)
@@ -355,54 +471,76 @@ def kernel_phase(dt: str, torch) -> list[dict]:
     return list(rows.values())
 
 
-def main_path(dt: str, torch) -> tuple[dict, object, list]:
+def grown_apply(solver_for, cfg, z, q, tag: str):
+    """``apply_checked`` on the solver ``solver_for(cfg)`` returns, raising
+    the caps until no list overflows. Returns (phi, launches of the last
+    apply, the config used, the solver)."""
+    import torch
+
+    from repro_torch.errors import CapOverflowError
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    while True:
+        solver = solver_for(cfg)
+        reset_launch_counts()
+        try:
+            phi = solver.apply_checked(z, q)
+            torch.cuda.synchronize()
+            return phi, launch_counts(), cfg, solver
+        except CapOverflowError as e:
+            cfg = grow_caps(cfg, e.margins)
+            print(f"{tag}: caps overflow {e.margins}; raised to "
+                  f"strong_cap={cfg.strong_cap} weak_cap={cfg.weak_cap}",
+                  flush=True)
+
+
+def median_apply_s(solver, z, q, phi, tag: str, torch) -> float:
+    """Median host seconds of three more applies (each ending in a
+    synchronize); each must equal ``phi`` bitwise."""
+    reps = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = solver.apply(z, q)
+        torch.cuda.synchronize()
+        reps.append(time.perf_counter() - t0)
+        check(torch.equal(again, phi), f"{tag}: apply not bitwise "
+              "reproducible")
+    return statistics.median(reps)
+
+
+def main_path(dt: str, torch) -> tuple[dict, dict]:
     """The served entry point on three distributions; returns the launch
-    totals, the (possibly cap-raised) config and the apply times."""
+    totals and, per distribution, what the per-phase path is held
+    against: the config used (caps raised where needed), the problem,
+    the main path's phi and apply time, the direct sums at the sampled
+    targets and, in f64, the reference backend's phi."""
     from repro_torch.configs import fmm_config
     from repro_torch.core.direct import direct_potential, rel_error_inf
     from repro_torch.data import particles
-    from repro_torch.errors import CapOverflowError
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.solver import FmmSolver
 
     cfg = fmm_config(N, p=P_TERMS, dtype=dt)
     totals = {k: 0 for k in KERNELS}
-    times = []
+    out = {}
     gen = torch.Generator().manual_seed(SEED)
     sample = torch.randperm(N, generator=gen)[:N_SAMPLE].cuda()
     for dist in DISTS:
         z, q = particles(dist, N, SEED)
-        while True:
-            solver = FmmSolver.build(cfg)
+        tag = f"main[{dt}/{dist}]"
+
+        def build(c):
+            solver = FmmSolver.build(c)
             check(solver.dispatched["apply"] == "cuda",
                   f"dispatched {solver.dispatched}")
-            reset_launch_counts()
-            try:
-                phi = solver.apply_checked(z, q)
-                torch.cuda.synchronize()
-                counts = launch_counts()
-            except CapOverflowError as e:
-                counts = launch_counts()
-                cfg = grow_caps(cfg, e.margins)
-                print(f"main[{dt}/{dist}]: caps overflow {e.margins}; "
-                      f"raised to strong_cap={cfg.strong_cap} "
-                      f"weak_cap={cfg.weak_cap}", flush=True)
-                continue
-            break
-        check(all(v == 1 for v in counts.values()),
-              f"main[{dt}/{dist}]: launches per apply {counts} (want 1 each)")
+            return solver
+
+        phi, counts, cfg, solver = grown_apply(build, cfg, z, q, tag)
+        check(counts == want_counts(),
+              f"{tag}: launches per apply {counts} (want {want_counts()})")
         for k, v in counts.items():
             totals[k] += v
-        reps = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            again = solver.apply(z, q)
-            torch.cuda.synchronize()
-            reps.append(time.perf_counter() - t0)
-        check(torch.equal(again, phi), f"main[{dt}/{dist}]: apply not "
-              "bitwise reproducible")
-        times.append(statistics.median(reps))
+        secs = median_apply_s(solver, z, q, phi, tag, torch)
         # accuracy: f64 direct sum at sampled targets over all sources,
         # both from the positions as given and from the positions as the
         # solver sees them (rounded to the config's precision)
@@ -412,27 +550,82 @@ def main_path(dt: str, torch) -> tuple[dict, object, list]:
         got = phi[sample].to(torch.complex128)
         err_given = rel_error_inf(got, d_given)
         err_seen = rel_error_inf(got, d_seen)
-        print(f"main[{dt}/{dist}]: caps strong={cfg.strong_cap} "
-              f"weak={cfg.weak_cap}; launches {counts}; apply "
-              f"{1e3 * times[-1]:.1f} ms; rel_err_inf vs direct: "
-              f"{err_given:.3e} (positions as given), {err_seen:.3e} "
-              f"(positions in {dt})", flush=True)
+        print(f"{tag}: caps strong={cfg.strong_cap} weak={cfg.weak_cap}; "
+              f"launches {counts}; apply {1e3 * secs:.1f} ms; rel_err_inf "
+              f"vs direct: {err_given:.3e} (positions as given), "
+              f"{err_seen:.3e} (positions in {dt})", flush=True)
         check(err_seen < ACC_BOUND[dt],
-              f"main[{dt}/{dist}]: accuracy {err_seen:.3e} >= {ACC_BOUND[dt]}")
+              f"{tag}: accuracy {err_seen:.3e} >= {ACC_BOUND[dt]}")
+        ref = None
         if dt == "f64":
             ref = FmmSolver.build(cfg, backend="reference").apply(z, q)
             d = rel_err(phi, ref)
-            print(f"main[{dt}/{dist}]: cuda vs reference backend {d:.3e}",
-                  flush=True)
+            print(f"{tag}: cuda vs reference backend {d:.3e}", flush=True)
             check(d <= F64_TOL, f"cuda vs reference {d:.3e} > {F64_TOL}")
-            del ref
-        del phi, again, z, q
+        out[dist] = dict(cfg=cfg, z=z, q=q, phi=phi, secs=secs,
+                         sample=sample, d_seen=d_seen, ref=ref)
+        del d_given
         torch.cuda.empty_cache()
-    return totals, cfg, times
+    return totals, out
 
 
-def batched_phase(cfg, torch) -> None:
+def register_phases(torch):
+    """Register the per-phase backend: "cuda" without its fused hooks."""
+    import dataclasses
+
+    from repro_torch.solver import get_backend, register_backend
+    register_backend(dataclasses.replace(
+        get_backend("cuda", torch.device("cuda")), name=PHASES,
+        m2l_fused=None, eval_fused=None))
+
+
+def per_phase_path(dt: str, main: dict, torch) -> dict:
+    """The per-phase backend on the main path's problems and configs:
+    launches per kernel, accuracy, and agreement with the main path (and
+    in f64 with the reference backend). Returns the launch totals."""
+    from repro_torch.core.direct import rel_error_inf
+    from repro_torch.solver import FmmSolver
+
+    totals = {k: 0 for k in KERNELS}
+    for dist in DISTS:
+        m = main[dist]
+        tag = f"phases[{dt}/{dist}]"
+        phi, counts, cfg, solver = grown_apply(
+            lambda c: FmmSolver.build(c, backend=PHASES), m["cfg"], m["z"],
+            m["q"], tag)
+        check(cfg == m["cfg"], f"{tag}: caps differ from the main path's")
+        check(solver.dispatched["apply"] == PHASES,
+              f"dispatched {solver.dispatched}")
+        want = phase_counts(cfg)
+        check(counts == want, f"{tag}: launches per apply {counts} "
+              f"(want {want})")
+        for k, v in counts.items():
+            totals[k] += v
+        secs = median_apply_s(solver, m["z"], m["q"], phi, tag, torch)
+        err = rel_error_inf(phi[m["sample"]].to(torch.complex128),
+                            m["d_seen"])
+        vs_main = rel_err(phi, m["phi"])
+        note = f"vs main path {vs_main:.3e}"
+        if dt == "f64":
+            vs_ref = rel_err(phi, m["ref"])
+            note += f", vs reference backend {vs_ref:.3e}"
+            check(vs_main <= F64_TOL and vs_ref <= F64_TOL,
+                  f"{tag}: {note} (limit {F64_TOL})")
+        print(f"{tag}: launches {counts}; apply {1e3 * secs:.1f} ms "
+              f"(main path {1e3 * m['secs']:.1f} ms); rel_err_inf vs "
+              f"direct {err:.3e} (positions in {dt}); {note}", flush=True)
+        check(err < ACC_BOUND[dt], f"{tag}: accuracy {err:.3e} >= "
+              f"{ACC_BOUND[dt]}")
+        del phi
+        torch.cuda.empty_cache()
+    return totals
+
+
+def batched_phase(cfg, torch, backend: str = "cuda") -> dict:
+    """``apply_batched`` at B = 4 on ``backend``: one apply's launches,
+    every row bitwise equal to its own ``apply``. Returns the launches."""
     from repro_torch.data import particles
+    from repro_torch.errors import CapOverflowError
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.solver import FmmSolver
 
@@ -440,9 +633,8 @@ def batched_phase(cfg, torch) -> None:
              (("uniform", 0), ("normal", 0), ("layer", 0), ("uniform", 1))]
     zb = torch.stack([z for z, _ in probs])
     qb = torch.stack([q for _, q in probs])
-    from repro_torch.errors import CapOverflowError
     while True:
-        solver = FmmSolver.build(cfg)
+        solver = FmmSolver.build(cfg, backend=backend)
         reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -450,23 +642,106 @@ def batched_phase(cfg, torch) -> None:
             phib = solver.apply_batched_checked(zb, qb)
         except CapOverflowError as e:
             cfg = grow_caps(cfg, e.margins)
-            print(f"batched: caps overflow {e.margins}; raised to "
-                  f"strong_cap={cfg.strong_cap} weak_cap={cfg.weak_cap}",
+            print(f"batched[{backend}]: caps overflow {e.margins}; raised "
+                  f"to strong_cap={cfg.strong_cap} weak_cap={cfg.weak_cap}",
                   flush=True)
             continue
         torch.cuda.synchronize()
         dt_b = time.perf_counter() - t0
         counts = launch_counts()
         break
-    check(all(v == 1 for v in counts.values()),
-          f"batched: launches {counts} (want 1 each for B = 4)")
+    want = want_counts() if backend == "cuda" else phase_counts(cfg)
+    check(counts == want,
+          f"batched[{backend}]: launches {counts} (want {want} for B = 4)")
     worst = 0.0
     for b, (z, q) in enumerate(probs):
         row = solver.apply(z, q)
         worst = max(worst, float((phib[b] - row).abs().max()))
-    print(f"batched[{cfg.dtype}] B=4: launches {counts}; "
+    print(f"batched[{backend}/{cfg.dtype}] B=4: launches {counts}; "
           f"{1e3 * dt_b:.1f} ms; max |row - apply| = {worst:.3e}", flush=True)
     check(worst == 0.0, "batched rows differ from single applies")
+    return counts
+
+
+def direct_phase(rows: list, main: dict, torch) -> None:
+    """The direct baseline: one ``nbody_direct`` all-pairs launch at
+    N = 2^20 per dtype, timed by CUDA events beside the FMM apply of the
+    same problem, then the paper's Fig. 5.5 sweep and its break-even N."""
+    from repro_torch.configs import fmm_config
+    from repro_torch.core.config import num_levels_for
+    from repro_torch.core.direct import rel_error_inf
+    from repro_torch.data import particles
+    from repro_torch.kernels import (launch_counts, nbody_direct,
+                                     reset_launch_counts)
+    from repro_torch.solver import FmmSolver
+
+    for dt in ("f32", "f64"):
+        m = main[dt]["uniform"]
+        cfg = m["cfg"]
+        z = m["z"].to(cfg.torch_complex)
+        q = m["q"].to(cfg.torch_complex)
+        reset_launch_counts()
+        phi = nbody_direct(z, z, q)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        check(counts == {k: int(k == "nbody") for k in KERNELS},
+              f"direct[{dt}]: launches {counts} (want nbody 1)")
+        check(bool(torch.isfinite(phi).all()), f"direct[{dt}]: not finite")
+        # against the f64 direct sum of the positions as the kernel sees
+        # them, per target: scaled as the kernel gate scales it
+        got = phi[m["sample"]].to(torch.complex128)[:, None]
+        ref = m["d_seen"][:, None]
+        if dt == "f64":
+            gate, tol = scaled_err(got, ref), F64_TOL
+        else:
+            zs = z[m["sample"]]
+            scale = magnitude_sum(zs.real, zs.imag, z.real, z.imag, q.real,
+                                  q.imag, torch)[:, None]
+            gate, tol = float(((got - ref).abs() / scale).max()), \
+                F32_KERNEL_TOL["nbody"]
+        err = rel_error_inf(got, ref)
+        check(gate <= tol, f"direct[{dt}]: {gate:.3e} > {tol} against the "
+              "f64 direct sum")
+        ms = time_cuda(lambda: nbody_direct(z, z, q), 3, torch, warmup=1)
+        fmm_ms = 1e3 * m["secs"]
+        print(f"direct[{dt}] N={N}: nbody_direct {ms:.2f} ms (CUDA events, "
+              f"one launch); FMM apply {fmm_ms:.2f} ms (host clock); "
+              f"direct/FMM = {ms / fmm_ms:.2f}; vs the f64 direct sum: "
+              f"gate {gate:.3e} (limit {tol:g}), rel_err_inf {err:.3e}",
+              flush=True)
+        row = next(r for r in rows if r["name"] == f"nbody_{dt}")
+        sz = 8 if dt == "f64" else 4
+        t_ops = 14.0 * (N * N - N) / PEAK_FLOPS[dt]
+        t_bytes = 8.0 * N * sz / PEAK_BYTES
+        row.update(launches=counts["nbody"], ms=ms,
+                   bound_ms=1e3 * max(t_ops, t_bytes),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+        del phi
+
+    for dt in ("f32", "f64"):
+        table = []
+        for n in SWEEP:
+            cfg = fmm_config(n, p=P_TERMS, dtype=dt,
+                             nlevels=max(1, num_levels_for(n, 45)))
+            z, q = particles("uniform", n, SEED)
+            phi, _, cfg, solver = grown_apply(
+                lambda c: FmmSolver.build(c), cfg, z, q, f"sweep[{dt}/{n}]")
+            fmm_s = median_apply_s(solver, z, q, phi, f"sweep[{dt}/{n}]",
+                                   torch)
+            zc, qc = z.to(cfg.torch_complex), q.to(cfg.torch_complex)
+            reps = 3 if n >= (1 << 18) else 10
+            d_ms = time_cuda(lambda: nbody_direct(zc, zc, qc), reps, torch,
+                             warmup=1)
+            table.append((n, cfg.nlevels, 1e3 * fmm_s, d_ms))
+            print(f"sweep[{dt}] N={n} levels={cfg.nlevels}: FMM apply "
+                  f"{1e3 * fmm_s:.3f} ms, direct {d_ms:.3f} ms", flush=True)
+        faster = [fmm < d for _, _, fmm, d in table]
+        even = next((table[i][0] for i in range(len(table))
+                     if all(faster[i:])), None)
+        print(f"sweep[{dt}]: break-even N = "
+              + (f"{even}" if even else f"none up to 2^{N.bit_length() - 1}")
+              + " (the FMM faster than the direct sum from there on)",
+              flush=True)
 
 
 def main() -> int:
@@ -475,7 +750,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card in this process", file=sys.stderr)
         return 2
-    from repro_torch.kernels import build_all, launch_counts
+    from repro_torch.kernels import build_all
     from repro_torch.kernels.build import LIBRARIES
 
     card = card_line()
@@ -489,6 +764,8 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
+    check(set(LIBRARIES) == set(KERNELS),
+          f"kernel libraries {sorted(LIBRARIES)} != {sorted(KERNELS)}")
     for name, log in logs.items():
         print(f"ptxas {name}:")
         print("\n".join(ptxas_summary(log)), flush=True)
@@ -501,20 +778,29 @@ def main() -> int:
     rows = []
     for dt in ("f32", "f64"):
         rows += kernel_phase(dt, torch)
-    main_cfg = {}
+    served, paths = {}, {}
     for dt in ("f32", "f64"):
-        totals, cfg, times = main_path(dt, torch)
-        main_cfg[dt] = cfg
-        for row in rows:
-            base, rdt = row["name"].rsplit("_", 1)
-            if rdt == dt:
-                row["launches"] = totals[base]
-                check(totals[base] > 0, f"{row['name']} never launched on "
-                      "the main path")
+        totals, served[dt] = main_path(dt, torch)
         print(f"main[{dt}]: launches {totals}; apply ms "
-              f"{[round(1e3 * t, 1) for t in times]}", flush=True)
-    batched_phase(main_cfg["f32"], torch)
-    check(launch_counts(), "no kernel library registered")
+              f"{[round(1e3 * m['secs'], 1) for m in served[dt].values()]}",
+              flush=True)
+        paths[dt] = {k: totals[k] for k in
+                     ("classify", "m2l", "p2l", "eval_fused")}
+    register_phases(torch)
+    for dt in ("f32", "f64"):
+        totals = per_phase_path(dt, served[dt], torch)
+        print(f"phases[{dt}]: launches {totals}", flush=True)
+        paths[dt].update(p2p=totals["p2p"], l2p=totals["l2p"])
+    for backend in ("cuda", PHASES):
+        batched_phase(served["f32"][DISTS[-1]]["cfg"], torch, backend)
+    direct_phase(rows, served, torch)
+    for row in rows:
+        base, rdt = row["name"].rsplit("_", 1)
+        if base != "nbody":
+            row["launches"] = paths[rdt][base]
+        check(row["launches"] > 0, f"{row['name']} never launched on the "
+              "path that runs it")
+    del served
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(card_line(), flush=True)

@@ -1,22 +1,31 @@
 #!/usr/bin/env python3
 """Where the time of one FMM apply goes on the CUDA card (PyTorch port).
 
-    python3 scripts/profile_torch_apply.py
+    python3 scripts/profile_torch_apply.py [--backend cuda|phases]
 
 For ``fmm_config(1 << 20, p=17)`` in f32 and in f64, on uniform
 particles (seed 0), it traces one ``FmmSolver.apply`` with
 ``torch.profiler`` and prints: the apply's wall time, the summed device
 time, the device's busy share and its number of device operations; for
 each ``fmm::<phase>`` range that the pipeline marks (tree, connectivity,
-upward, downward, evaluation, unsort) its span on the host, the device
-time of the kernels launched inside it and its span on the device's
+upward, downward, evaluation, unsort; on the per-phase path also
+m2l[<level>], l2p, m2p and p2p) and each ``kernel::<name>`` range around
+a hand-written kernel's launch, its span on the host, the device time
+of the kernels launched inside it and its span on the device's
 timeline; and the device kernels that take the most time, with their
 launch counts.
+
+``--backend cuda`` (the default) profiles the main path; ``--backend
+phases`` the per-phase path: the "cuda" backend without its fused
+hooks, registered here as "cuda-phases", so M2L runs one launch per
+level and L2P and P2P each one launch of their own.
 
 Needs a CUDA card; exits nonzero without one.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import sys
 import time
 from pathlib import Path
@@ -27,7 +36,47 @@ N = 1 << 20
 TOP = 12
 
 
-def profile_one(dtype: str, torch) -> None:
+def backend_name(which: str, torch) -> str:
+    """The registered backend to profile: "cuda", or the per-phase one."""
+    if which == "cuda":
+        return "cuda"
+    from repro_torch.solver import get_backend, register_backend
+    return register_backend(dataclasses.replace(
+        get_backend("cuda", torch.device("cuda")), name="cuda-phases",
+        m2l_fused=None, eval_fused=None)).name
+
+
+def _is(e, kind: str) -> bool:
+    return str(e.device_type).endswith(kind)
+
+
+def hand_written_by_range(prof) -> dict | None:
+    """Microseconds of hand-written kernels launched inside each
+    ``fmm::`` range: the i-th device span of a ``kernel::<name>`` range
+    belongs to its i-th host range, and counts for every ``fmm::`` range
+    that encloses that host range. None if the two do not pair up."""
+    events = prof.events()
+    host = [e for e in events if _is(e, "CPU")
+            and e.name.startswith(("fmm::", "kernel::"))]
+    phases = [e for e in host if e.name.startswith("fmm::")]
+    out: dict = {}
+    for name in {e.name for e in host if e.name.startswith("kernel::")}:
+        h = sorted((e for e in host if e.name == name),
+                   key=lambda e: e.time_range.start)
+        d = sorted((e for e in events if _is(e, "CUDA") and e.name == name),
+                   key=lambda e: e.time_range.start)
+        if len(h) != len(d):
+            return None
+        for he, de in zip(h, d):
+            for ph in phases:
+                if (ph.time_range.start <= he.time_range.start
+                        and he.time_range.end <= ph.time_range.end):
+                    out[ph.name] = out.get(ph.name, 0.0) + \
+                        de.time_range.elapsed_us()
+    return out
+
+
+def profile_one(dtype: str, backend: str, torch) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import fmm_config
@@ -36,7 +85,7 @@ def profile_one(dtype: str, torch) -> None:
 
     cfg = fmm_config(N, p=17, dtype=dtype)
     z, q = particles("uniform", N, 0)
-    solver = FmmSolver.build(cfg)
+    solver = FmmSolver.build(cfg, backend=backend)
     for _ in range(2):                     # builds the kernels, warms up
         solver.apply(z, q)
     torch.cuda.synchronize()
@@ -48,23 +97,29 @@ def profile_one(dtype: str, torch) -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     averages = prof.key_averages()
-    phases = [e for e in averages if e.key.startswith("fmm::")
+    ranges = ("fmm::", "kernel::")
+    phases = [e for e in averages if e.key.startswith(ranges)
               and str(e.device_type).endswith("CPU")]
-    kernels = [e for e in averages if not e.key.startswith("fmm::")
+    kernels = [e for e in averages if not e.key.startswith(ranges)
                and str(e.device_type).endswith("CUDA")]
     spans = {e.key: e.self_device_time_total for e in averages
-             if e.key.startswith("fmm::")
+             if e.key.startswith(ranges)
              and str(e.device_type).endswith("CUDA")}
     dev_us = sum(e.self_device_time_total for e in kernels)
-    print(f"{torch.cuda.get_device_name(0)}; N={N} {dtype}: profiled apply "
+    own = hand_written_by_range(prof)
+    print(f"{torch.cuda.get_device_name(0)}; backend {backend}; N={N} "
+          f"{dtype}: profiled apply "
           f"wall {1e3 * wall:.2f} ms, device time {dev_us / 1e3:.2f} ms, "
           f"device busy {100 * dev_us / 1e6 / wall:.1f}%, "
           f"{sum(e.count for e in kernels)} device ops")
-    print("  phase          host ms   device ms   device span ms")
+    print("  range               calls   host ms   torch device ms   "
+          "hand-written kernels ms   device span ms")
     for e in phases:
         span = spans.get(e.key)
-        print(f"  {e.key[5:]:13s} {e.cpu_time_total / 1e3:8.2f}  "
-              f"{e.device_time_total / 1e3:9.3f}   "
+        mine = ("" if e.key.startswith("kernel::") else "not paired"
+                if own is None else f"{own.get(e.key, 0.0) / 1e3:.3f}")
+        print(f"  {e.key:20s} {e.count:5d} {e.cpu_time_total / 1e3:8.2f}  "
+              f"{e.device_time_total / 1e3:15.3f}   {mine:>23s}   "
               + ("not traced" if span is None else f"{span / 1e3:9.3f}"))
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:TOP]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} "
@@ -72,13 +127,17 @@ def profile_one(dtype: str, torch) -> None:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--backend", choices=("cuda", "phases"), default="cuda")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("profile_torch_apply: no CUDA card", file=sys.stderr)
         return 2
+    backend = backend_name(args.backend, torch)
     for dtype in ("f32", "f64"):
-        profile_one(dtype, torch)
+        profile_one(dtype, backend, torch)
     return 0
 
 

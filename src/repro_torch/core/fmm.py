@@ -11,10 +11,12 @@ B problems of one config share every static shape, so each phase is one
 pass — and each kernel one launch — for the whole batch. The sweeps here
 are plain torch: they are the "reference" backend and the twins the
 kernels of ``repro_torch.kernels`` are checked against. ``fmm_build``
-and ``fmm_evaluate`` take the hooks the main path swaps kernels into
-(``leaf_classify_impl``, ``m2l_fused_impl``, ``p2l_impl``,
-``eval_fused_impl``) — the reference's hooks, minus the static leaf index
-argument, which the port reads from its cached ``leaf_layout``.
+and ``fmm_evaluate`` take the hooks kernels are swapped into: the main
+path's (``leaf_classify_impl``, ``m2l_fused_impl``, ``p2l_impl``,
+``eval_fused_impl``) and the per-phase path's (``m2l_impl`` one level at
+a time, ``l2p_impl``, ``p2p_impl``) — the reference's hooks, minus the
+static leaf index argument, which the port reads from its cached
+``leaf_layout``.
 
 Sums over a leaf's particles run over dense (B, 4**L, n_max) planes of
 the static ``leaf_particle_index`` along the last axis, and results go
@@ -24,7 +26,10 @@ run.
 
 Each phase runs inside a ``torch.profiler.record_function`` range named
 ``fmm::<phase>`` (tree, connectivity, upward, downward, evaluation), so
-a profiler trace of an apply reads the time of each phase.
+a profiler trace of an apply reads the time of each phase; unless M2L
+is level-fused, ``fmm::m2l[<level>]`` ranges mark it inside the
+downward pass, and unless the evaluation is fused, ``fmm::l2p``,
+``fmm::m2p`` and ``fmm::p2p`` mark its parts.
 """
 from __future__ import annotations
 
@@ -280,19 +285,42 @@ def downward(mult, tree: Tree, conn: Connectivity, cfg: FmmConfig,
              rho=None, p2l_impl=None) -> torch.Tensor:
     """Local coefficients at the leaf level (M2L, L2L, P2L), level by
     level — the plain sweep."""
-    dev = mult[-1].device
-    mat = _m2l_mat(cfg, dev)
+    mat = _m2l_mat(cfg, mult[-1].device)
+
+    def m2l(m, weak, centers, c, r):
+        return m2l_level(m, weak, centers, c, mat, r)
+
     if rho is None:
         rho = effective_radii(tree, cfg)
+    return _fold_levels(mult, tree, conn, cfg, m2l, rho, p2l_impl)
+
+
+def downward_with(mult, tree: Tree, conn: Connectivity, cfg: FmmConfig,
+                  m2l_impl, p2l_impl=None) -> torch.Tensor:
+    """Downward pass with a per-level M2L hook: ``m2l_impl(mult, weak,
+    centers, cfg, rho)`` returns one level's (B, 4**l, p+1) M2L
+    contribution (one kernel launch per level), folded in by the L2L
+    recursion; with no level below the root, the root's own M2L."""
+    return _fold_levels(mult, tree, conn, cfg, m2l_impl,
+                        effective_radii(tree, cfg), p2l_impl)
+
+
+def _fold_levels(mult, tree: Tree, conn: Connectivity, cfg: FmmConfig,
+                 m2l, rho, p2l_impl) -> torch.Tensor:
+    """L2L from the root down, adding each level's ``m2l(...)`` as it
+    goes (inside an ``fmm::m2l[<level>]`` range), then the leaf P2L."""
     B = mult[-1].shape[0]
-    local = torch.zeros((B, 1, cfg.p + 1), dtype=mult[-1].dtype, device=dev)
+    local = torch.zeros((B, 1, cfg.p + 1), dtype=mult[-1].dtype,
+                        device=mult[-1].device)
     for l in range(1, cfg.nlevels + 1):
         local = l2l_level(local, tree, l, cfg, rho[l], rho[l - 1])
-        local = local + m2l_level(mult[l], conn.weak[l], tree.centers[l],
-                                  cfg, mat, rho[l])
+        with record_function(f"fmm::m2l[{l}]"):
+            local = local + m2l(mult[l], conn.weak[l], tree.centers[l], cfg,
+                                rho[l])
     if cfg.nlevels == 0:
-        local = local + m2l_level(mult[0], conn.weak[0], tree.centers[0],
-                                  cfg, mat, rho[0])
+        with record_function("fmm::m2l[0]"):
+            local = local + m2l(mult[0], conn.weak[0], tree.centers[0], cfg,
+                                rho[0])
     return _apply_p2l(local, tree, conn, cfg, rho, p2l_impl)
 
 
@@ -411,14 +439,20 @@ def fmm_build(z: torch.Tensor, q: torch.Tensor, cfg: FmmConfig,
     return FmmPlan(tree=tree, conn=conn)
 
 
-def fmm_evaluate(plan: FmmPlan, cfg: FmmConfig, m2l_fused_impl=None,
+def fmm_evaluate(plan: FmmPlan, cfg: FmmConfig, p2p_impl=None,
+                 m2l_impl=None, l2p_impl=None, m2l_fused_impl=None,
                  p2l_impl=None, eval_fused_impl=None) -> torch.Tensor:
     """Upward/downward/evaluation on a built plan; returns (B, N) phi in
     rank (sorted) order.
 
-    ``m2l_fused_impl`` computes the whole downward M2L in one launch (see
-    ``downward_fused``); ``p2l_impl`` replaces the downward P2L sweep;
-    ``eval_fused_impl(local, mult_leaf, tree, conn, cfg) -> (B, N)``
+    ``p2p_impl(tree, conn, cfg)``, ``m2l_impl`` (one level, see
+    ``downward_with``) and ``l2p_impl(local, tree, cfg)`` replace the
+    near-field, M2L and L2P sweeps (the per-phase path; M2P stays the
+    plain sweep, as in the reference). ``m2l_fused_impl`` takes
+    precedence over ``m2l_impl``: it computes the whole downward M2L in
+    one launch (see ``downward_fused``); ``p2l_impl`` replaces the
+    downward P2L sweep; ``eval_fused_impl(local, mult_leaf, tree, conn,
+    cfg) -> (B, N)`` takes precedence over ``l2p_impl``/``p2p_impl``: it
     computes the whole evaluation phase (L2P + M2P + P2P) in one launch.
     Hooks left ``None`` run the plain sweeps.
     """
@@ -430,16 +464,24 @@ def fmm_evaluate(plan: FmmPlan, cfg: FmmConfig, m2l_fused_impl=None,
         if m2l_fused_impl is not None:
             local = downward_fused(mult, tree, conn, cfg, m2l_fused_impl,
                                    p2l_impl)
-        else:
+        elif m2l_impl is None:
             local = downward(mult, tree, conn, cfg, p2l_impl=p2l_impl)
+        else:
+            local = downward_with(mult, tree, conn, cfg, m2l_impl, p2l_impl)
 
     with record_function("fmm::evaluation"):
         if eval_fused_impl is not None:
             return eval_fused_impl(local, mult[cfg.nlevels], tree, conn, cfg)
-        phi = l2p(local, tree, cfg)
+        with record_function("fmm::l2p"):
+            phi = (l2p(local, tree, cfg) if l2p_impl is None
+                   else l2p_impl(local, tree, cfg))
         if cfg.use_p2l_m2p:
-            phi = m2p_sweep(phi, mult[cfg.nlevels], tree, conn, cfg)
-        return p2p_sweep(phi, tree, conn, cfg)
+            with record_function("fmm::m2p"):
+                phi = m2p_sweep(phi, mult[cfg.nlevels], tree, conn, cfg)
+        with record_function("fmm::p2p"):
+            if p2p_impl is None:
+                return p2p_sweep(phi, tree, conn, cfg)
+            return phi + p2p_impl(tree, conn, cfg)
 
 
 def unsort(phi_sorted: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:

@@ -16,7 +16,10 @@ Every exported entry point takes tensor pointers and the CUDA stream as
 ``cudaGetLastError()`` after its launch; ``CudaLibrary.launch`` raises if
 that is not 0 and otherwise counts one launch. The count is the evidence
 that a run went through the kernel: it rises only where a kernel was
-actually enqueued.
+actually enqueued. Each launch runs inside a ``torch.profiler``
+``record_function`` range ``kernel::<name>``, so a profiler trace
+attributes the kernel's device time to the range around it (the
+pipeline's ``fmm::<phase>`` ranges).
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import subprocess
 from pathlib import Path
 
 import torch
+from torch.profiler import record_function
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -134,8 +138,13 @@ class CudaLibrary:
                 conv.append(None)
             else:
                 conv.append(a)
+        if len(conv) + 1 != len(self.signatures[symbol]):
+            raise TypeError(f"{self.name}:{symbol} takes "
+                            f"{len(self.signatures[symbol]) - 1} arguments "
+                            f"before the stream, got {len(conv)}")
         lib = self.lib()
-        rc = getattr(lib, symbol)(*conv, stream)
+        with record_function(f"kernel::{self.name}"):
+            rc = getattr(lib, symbol)(*conv, stream)
         if rc != 0:
             msg = lib.repro_error_string(rc).decode()
             raise RuntimeError(f"{self.name}:{symbol} launch failed: "

@@ -8,14 +8,16 @@ masked (-1) list entry instead of reading a dummy row, and planes are
 exactly n_max = max leaf population wide (64 at the paper's N = 2^20).
 
 ``pairwise_tile`` and ``l2p_horner`` are the plain torch forms of the
-kernels' per-target math (the twins of ``repro.kernels.common``'s).
+kernels' per-target math (the twins of ``repro.kernels.common``'s);
+``p2p_slots`` is the plain form of the near-field loop that the P2P and
+fused evaluation kernels share.
 """
 from __future__ import annotations
 
 import torch
 
 from ..core.config import FmmConfig
-from ..core.fmm import from_leaves, leaf_planes
+from ..core.fmm import effective_radii, from_leaves, leaf_planes, rows
 from ..core.topology import leaf_layout
 
 
@@ -35,6 +37,24 @@ def dense_rank_planes(cfg: FmmConfig, device) -> torch.Tensor:
     in padded slots — the plane the kernels compare to exclude
     self-interaction by particle identity, not by position."""
     return leaf_layout(cfg.n, cfg.nlevels, device).ranks
+
+
+def real_planes(x: torch.Tensor, rdt):
+    """Complex tensor -> contiguous (real, imag) planes of dtype ``rdt``."""
+    return x.real.to(rdt).contiguous(), x.imag.to(rdt).contiguous()
+
+
+def leaf_frames(tree, cfg: FmmConfig, zr, zi):
+    """The leaf boxes' centers and effective radii as real planes, and the
+    particles pre-centered and radius-normalized, t = (z - z0)/rho:
+    (cr, ci, rh) of shape (B, 4**L) and (tr, ti) like ``zr``."""
+    rdt = cfg.torch_real
+    L = cfg.nlevels
+    cr, ci = real_planes(tree.centers[L], rdt)
+    rh = effective_radii(tree, cfg)[L].to(rdt).contiguous()
+    tr = ((zr - cr[..., None]) / rh[..., None]).contiguous()
+    ti = ((zi - ci[..., None]) / rh[..., None]).contiguous()
+    return cr, ci, rh, tr, ti
 
 
 def scatter_from_leaves(values: torch.Tensor, cfg: FmmConfig) -> torch.Tensor:
@@ -61,6 +81,24 @@ def pairwise_tile(kernel: str, tzr, tzi, trk, szr, szi, qr, qi, srk):
     lr = torch.where(ok, 0.5 * torch.log(torch.where(ok, d2, zero + 1)), zero)
     li = torch.where(ok, torch.atan2(-dy, -dx), zero)
     return ((qr * lr - qi * li).sum(dim=-1), (qr * li + qi * lr).sum(dim=-1))
+
+
+def p2p_slots(accr, acci, lists, zr, zi, qr, qi, rk, kernel: str):
+    """Add the near field over the (B, nb, S) P2P lists to the (B, nb, n)
+    accumulators, one list slot at a time: targets and sources are the
+    same dense leaf planes, ``rk`` their (nb, n) rank plane."""
+    zero = torch.zeros((), dtype=zr.dtype, device=zr.device)
+    trk = rk.long()
+    for s in range(lists.shape[-1]):
+        src = lists[..., s].long()
+        valid = (src >= 0)[..., None]
+        srcc = torch.where(src >= 0, src, torch.zeros_like(src))
+        sr, si = pairwise_tile(kernel, zr, zi, trk, rows(zr, srcc),
+                               rows(zi, srcc), rows(qr, srcc),
+                               rows(qi, srcc), trk[srcc])
+        accr = accr + torch.where(valid, sr, zero)
+        acci = acci + torch.where(valid, si, zero)
+    return accr, acci
 
 
 def l2p_horner(p: int, br, bi, tr, ti):

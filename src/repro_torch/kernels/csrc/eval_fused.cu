@@ -81,33 +81,12 @@ __global__ void eval_fused_kernel(
     const int src = p2p[row * S + s];
     if (src < 0) continue;                     // block-uniform
     __syncthreads();                           // previous stage consumed
-    const long long sb = (b * nb + src) * n;
-    for (int j = t; j < n; j += nt) {
-      s_x[j] = zr[sb + j];
-      s_y[j] = zi[sb + j];
-      s_qr[j] = qr[sb + j];
-      s_qi[j] = qi[sb + j];
-      s_rk[j] = rk[(long long)src * n + j];
-    }
+    stage_source_leaf(zr, zi, qr, qi, rk, (b * nb + src) * n,
+                      (long long)src * n, n, s_x, s_y, s_qr, s_qi, s_rk);
     __syncthreads();
-    T sr = T(0), si = T(0);
-    for (int j = 0; j < n; ++j) {
-      const T dx = s_x[j] - tzr, dy = s_y[j] - tzi;   // z_src - z_tgt
-      const T d2 = dx * dx + dy * dy;
-      const int srk = s_rk[j];
-      const bool ok = srk >= 0 && srk != trk;
-      const T cq = s_qr[j], sq = s_qi[j];
-      if (LOG) {
-        const T lr = ok ? T(0.5) * log(d2) : T(0);
-        const T li = ok ? atan2(-dy, -dx) : T(0);
-        sr += cq * lr - sq * li;
-        si += cq * li + sq * lr;
-      } else {
-        const T inv = ok ? T(1) / d2 : T(0);          // q/(dx + i dy)
-        sr += (cq * dx + sq * dy) * inv;
-        si += (sq * dx - cq * dy) * inv;
-      }
-    }
+    T sr, si;
+    p2p_leaf_sum<T, LOG>(s_x, s_y, s_qr, s_qi, s_rk, n, tzr, tzi, trk, sr,
+                         si);
     phr += sr;
     phi_ += si;
   }

@@ -26,7 +26,7 @@ import torch
 
 from ...core.fmm import rows
 from ..build import CudaLibrary, I, P, check_tensors, on_cpu
-from ..common import l2p_horner, pairwise_tile
+from ..common import l2p_horner, p2p_slots
 
 LIB = CudaLibrary("eval_fused", {
     f"eval_fused_{s}": [P, I, P, I] + [P] * 14 + [I] * 5 + [P, P, P]
@@ -41,16 +41,8 @@ def eval_fused_plain(p2p_lists, m2p_lists, zr, zi, qr, qi, rk, tr, ti, br,
     zero = torch.zeros((), dtype=dt, device=zr.device)
     one = zero + 1
     accr, acci = l2p_horner(p, br, bi, tr, ti)            # L2P seed
-    trk = rk.long()
-    for s in range(p2p_lists.shape[-1]):                  # P2P, per slot
-        src = p2p_lists[..., s].long()
-        valid = (src >= 0)[..., None]
-        srcc = torch.where(src >= 0, src, torch.zeros_like(src))
-        sr, si = pairwise_tile(kernel, zr, zi, trk, rows(zr, srcc),
-                               rows(zi, srcc), rows(qr, srcc),
-                               rows(qi, srcc), trk[srcc])
-        accr = accr + torch.where(valid, sr, zero)
-        acci = acci + torch.where(valid, si, zero)
+    accr, acci = p2p_slots(accr, acci, p2p_lists, zr, zi, qr, qi, rk,
+                           kernel)                        # P2P
     # M2P
     if m2p_lists is not None:
         for s in range(m2p_lists.shape[-1]):

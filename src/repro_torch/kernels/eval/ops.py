@@ -14,14 +14,10 @@ from __future__ import annotations
 import torch
 
 from ...core.config import FmmConfig
-from ...core.fmm import effective_radii
-from ..common import dense_leaf_arrays, dense_rank_planes, scatter_from_leaves
+from ..common import (dense_leaf_arrays, dense_rank_planes, leaf_frames,
+                      real_planes, scatter_from_leaves)
 from .fused import eval_fused_cuda
 from .p2l import p2l_cuda
-
-
-def _planes(x: torch.Tensor, rdt):
-    return x.real.to(rdt).contiguous(), x.imag.to(rdt).contiguous()
 
 
 def eval_operands(local, mult_leaf, tree, conn, cfg: FmmConfig):
@@ -30,19 +26,15 @@ def eval_operands(local, mult_leaf, tree, conn, cfg: FmmConfig):
     multipole coefficient planes. Returns (positional args, keyword
     args) of ``eval_fused_cuda``."""
     rdt = cfg.torch_real
-    L = cfg.nlevels
     zr, zi, qr, qi = dense_leaf_arrays(tree.z, tree.q, cfg)
     rk = dense_rank_planes(cfg, zr.device)
-    cr, ci = _planes(tree.centers[L], rdt)
-    rh = effective_radii(tree, cfg)[L].to(rdt).contiguous()
-    tr = ((zr - cr[..., None]) / rh[..., None]).contiguous()
-    ti = ((zi - ci[..., None]) / rh[..., None]).contiguous()
-    br, bi = _planes(local, rdt)
+    cr, ci, rh, tr, ti = leaf_frames(tree, cfg, zr, zi)
+    br, bi = real_planes(local, rdt)
     kwargs = dict(p=cfg.p, kernel=cfg.kernel)
     m2p_lists = None
     if cfg.use_p2l_m2p:
         m2p_lists = conn.m2p.contiguous()
-        ar, ai = _planes(mult_leaf, rdt)
+        ar, ai = real_planes(mult_leaf, rdt)
         kwargs.update(ar=ar, ai=ai, mcr=cr, mci=ci, mrho=rh)
     args = (conn.p2p.contiguous(), m2p_lists, zr, zi, qr, qi, rk, tr, ti,
             br, bi)
@@ -66,7 +58,7 @@ def p2l_operands(tree, conn, cfg: FmmConfig, rho):
     of ``p2l_cuda``."""
     rdt = cfg.torch_real
     zr, zi, qr, qi = dense_leaf_arrays(tree.z, tree.q, cfg)
-    cr, ci = _planes(tree.centers[cfg.nlevels], rdt)
+    cr, ci = real_planes(tree.centers[cfg.nlevels], rdt)
     args = (conn.p2l.contiguous(), cr, ci, rho.to(rdt).contiguous(), zr, zi,
             qr, qi)
     return args, dict(p=cfg.p, kernel=cfg.kernel)

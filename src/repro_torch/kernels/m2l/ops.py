@@ -1,9 +1,11 @@
-"""Wiring of the M2L kernel into the FMM downward pass.
+"""Wiring of the M2L kernel into the FMM downward pass. Two entry points
+share one kernel and one operand staging (``m2l_planes``):
 
 ``m2l_fused_apply`` is the ``m2l_fused_impl`` hook: it flattens *all*
 levels of the downward pass into one (B, sum 4^l, W) box axis with static
 per-level offsets and issues exactly one kernel launch for the whole
-downward M2L of B problems.
+downward M2L of B problems. ``m2l_level_apply`` is the per-level
+``m2l_impl`` hook of ``core.fmm.downward_with``: one launch per level.
 """
 from __future__ import annotations
 
@@ -27,31 +29,20 @@ def hankel(cfg: FmmConfig, device) -> torch.Tensor:
                            device=device)
 
 
-def m2l_operands(mult, weak, centers, cfg: FmmConfig, rho):
-    """Stage the kernel operands of the fused M2L from the per-level
-    sequences (index = level, each with a leading B axis): every level's
-    boxes concatenated into one flat axis — the weak lists are
-    level-local, so each level's entries shift by its static offset —
-    and the per-slot ratio planes rho_s/r and -rho_t/r (plus log r for
-    the log kernel). Returns (operands of ``m2l_cuda``, level offsets)."""
-    levels = fused_levels(cfg)
-    offs = np.concatenate([[0], np.cumsum([4**l for l in levels])])
-    weak_flat = torch.cat(
-        [torch.where(weak[l] >= 0, weak[l] + int(offs[i]),
-                     torch.full_like(weak[l], -1))
-         for i, l in enumerate(levels)], dim=1).contiguous()
-    mult_flat = torch.cat([mult[l] for l in levels], dim=1)
-    c = torch.cat([centers[l] for l in levels], dim=1)
-    rh = torch.cat([rho[l] for l in levels], dim=1)
-
+def m2l_planes(mult, weak, centers, cfg: FmmConfig, rho):
+    """Stage the kernel operands over one flat box axis: (B, NB, p+1)
+    multipoles, (B, NB, W) weak lists into that axis, (B, NB) centers and
+    radii. Returns the operands of ``m2l_cuda``: the multipole planes,
+    the per-slot ratio planes rho_s/r and -rho_t/r (plus log r for the
+    log kernel) and the Hankel matrix."""
     rdt = cfg.torch_real
-    mask = weak_flat >= 0
-    src = torch.where(mask, weak_flat, torch.zeros_like(weak_flat)).long()
-    one = torch.ones((), dtype=c.dtype, device=c.device)
-    zero = torch.zeros((), dtype=rh.dtype, device=rh.device)
-    r = torch.where(mask, c[..., None] - rows(c, src), one)
-    pre = torch.where(mask, rows(rh, src), zero) / r      # rho_s / r
-    post = -rh[..., None] / r                             # -rho_t / r
+    mask = weak >= 0
+    src = torch.where(mask, weak, torch.zeros_like(weak)).long()
+    one = torch.ones((), dtype=centers.dtype, device=centers.device)
+    zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
+    r = torch.where(mask, centers[..., None] - rows(centers, src), one)
+    pre = torch.where(mask, rows(rho, src), zero) / r     # rho_s / r
+    post = -rho[..., None] / r                            # -rho_t / r
 
     def plane(x):
         return x.to(rdt).contiguous()
@@ -60,10 +51,36 @@ def m2l_operands(mult, weak, centers, cfg: FmmConfig, rho):
     if cfg.kernel == "log":
         lg = torch.log(r)                                 # masked slots: 0
         logs = (plane(lg.real), plane(lg.imag))
-    args = (weak_flat, plane(mult_flat.real), plane(mult_flat.imag),
+    return (weak.contiguous(), plane(mult.real), plane(mult.imag),
             plane(pre.real), plane(pre.imag), plane(post.real),
-            plane(post.imag), hankel(cfg, weak_flat.device), *logs)
-    return args, offs
+            plane(post.imag), hankel(cfg, weak.device), *logs)
+
+
+def m2l_operands(mult, weak, centers, cfg: FmmConfig, rho):
+    """Stage the kernel operands of the fused M2L from the per-level
+    sequences (index = level, each with a leading B axis): every level's
+    boxes concatenated into one flat axis — the weak lists are
+    level-local, so each level's entries shift by its static offset —
+    then ``m2l_planes``. Returns (operands of ``m2l_cuda``, level
+    offsets)."""
+    levels = fused_levels(cfg)
+    offs = np.concatenate([[0], np.cumsum([4**l for l in levels])])
+    weak_flat = torch.cat(
+        [torch.where(weak[l] >= 0, weak[l] + int(offs[i]),
+                     torch.full_like(weak[l], -1))
+         for i, l in enumerate(levels)], dim=1)
+    mult_flat = torch.cat([mult[l] for l in levels], dim=1)
+    c = torch.cat([centers[l] for l in levels], dim=1)
+    rh = torch.cat([rho[l] for l in levels], dim=1)
+    return m2l_planes(mult_flat, weak_flat, c, cfg, rh), offs
+
+
+def m2l_level_apply(mult, weak, centers, cfg: FmmConfig, rho):
+    """Drop-in ``m2l_impl`` for ``core.fmm.downward_with``: the M2L of
+    one level's (B, 4**l) boxes, ONE kernel launch. Returns the (B, 4**l,
+    p+1) normalized local contributions."""
+    outr, outi = m2l_cuda(*m2l_planes(mult, weak, centers, cfg, rho))
+    return torch.complex(outr, outi).to(cfg.torch_complex)
 
 
 def m2l_fused_apply(mult, weak, centers, cfg: FmmConfig, rho):

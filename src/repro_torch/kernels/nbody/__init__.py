@@ -1,0 +1,4 @@
+from .nbody import nbody_cuda, nbody_plain
+from .ops import nbody_direct
+
+__all__ = ["nbody_cuda", "nbody_plain", "nbody_direct"]

@@ -1,15 +1,21 @@
-"""Per-phase backend registry for the FMM main path.
+"""Per-phase backend registry for the FMM.
 
-The pipeline in ``repro_torch.core.fmm`` exposes the hooks the main path
-swaps kernels into. A ``Backend`` bundles one implementation per hook;
-the registry maps names to backends:
+The pipeline in ``repro_torch.core.fmm`` exposes the hooks kernels are
+swapped into. A ``Backend`` bundles one implementation per hook; the
+registry maps names to backends:
 
   "reference"  plain torch sweeps of ``repro_torch.core.fmm`` (every hook
                None -> the core path runs its own sweep)
-  "cuda"       the hand-written CUDA kernels of ``repro_torch.kernels``:
-               leaf classify, level-fused M2L, P2L and the fused
-               evaluation phase. Each wrapper launches its kernel on CUDA
-               tensors and runs its plain version only on CPU tensors.
+  "cuda"       the hand-written CUDA kernels of ``repro_torch.kernels``,
+               one per hook: leaf classify, level-fused M2L, P2L and the
+               fused evaluation phase (the main path), and the per-level
+               M2L, L2P and P2P. The fused hooks take precedence, so the
+               main path runs the first four; a backend derived with
+               ``dataclasses.replace(..., m2l_fused=None,
+               eval_fused=None)`` and registered under its own name runs
+               the per-phase path. Each wrapper launches its kernel on
+               CUDA tensors and runs its plain version only on CPU
+               tensors.
   "auto"       "cuda" for a CUDA device; "reference" only when the
                caller asked for the CPU
 
@@ -33,6 +39,9 @@ class Backend:
     """Named bundle of per-phase implementations (None -> core sweep)."""
 
     name: str
+    p2p: PhaseImpl = None
+    m2l: PhaseImpl = None
+    l2p: PhaseImpl = None
     m2l_fused: PhaseImpl = None
     p2l: PhaseImpl = None
     eval_fused: PhaseImpl = None
@@ -40,8 +49,9 @@ class Backend:
 
     def phase_impls(self) -> dict:
         """kwargs for ``fmm_evaluate`` selecting this backend's hooks."""
-        return {"m2l_fused_impl": self.m2l_fused, "p2l_impl": self.p2l,
-                "eval_fused_impl": self.eval_fused}
+        return {"p2p_impl": self.p2p, "m2l_impl": self.m2l,
+                "l2p_impl": self.l2p, "m2l_fused_impl": self.m2l_fused,
+                "p2l_impl": self.p2l, "eval_fused_impl": self.eval_fused}
 
     def topology_impls(self) -> dict:
         """kwargs for ``fmm_build`` selecting this backend's topology hook."""
@@ -73,10 +83,12 @@ def get_backend(name: str, device: torch.device) -> Backend:
 
 
 def _make_cuda() -> Backend:
-    from ..kernels import (eval_fused_apply, leaf_classify_cuda,
-                           m2l_fused_apply, p2l_apply)
+    from ..kernels import (eval_fused_apply, l2p_apply, leaf_classify_cuda,
+                           m2l_fused_apply, m2l_level_apply, p2l_apply,
+                           p2p_apply)
 
-    return Backend(name="cuda", m2l_fused=m2l_fused_apply, p2l=p2l_apply,
+    return Backend(name="cuda", p2p=p2p_apply, m2l=m2l_level_apply,
+                   l2p=l2p_apply, m2l_fused=m2l_fused_apply, p2l=p2l_apply,
                    eval_fused=eval_fused_apply,
                    leaf_classify=leaf_classify_cuda)
 

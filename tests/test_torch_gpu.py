@@ -1,10 +1,13 @@
 """PyTorch port on the CUDA card: each kernel against its plain version
-on the same CUDA tensors, launch counts per apply, and the solver's
-cuda-vs-reference parity. Marked ``gpu``: skipped (inside a fixture,
+on the same CUDA tensors, launch counts per kernel per apply on the main
+path and on the per-phase path, and the solver's cuda-vs-reference
+parity. Marked ``gpu``: skipped (inside a fixture,
 never at import) where no CUDA card is present. On the machine with the
 card: ``PYTHONPATH=src python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py`` (the shared conftest imports JAX, which the
 port does not need)."""
+import dataclasses
+
 import pytest
 import torch
 
@@ -12,11 +15,14 @@ from repro_torch.core import fmm as F
 from repro_torch.core.config import FmmConfig
 from repro_torch.data import particles
 from repro_torch.kernels import (eval_fused_cuda, eval_fused_plain,
-                                 eval_operands, launch_counts,
+                                 eval_operands, l2p_cuda, l2p_operands,
+                                 l2p_plain, launch_counts,
                                  leaf_classify_cuda, leaf_classify_plain,
-                                 m2l_cuda, m2l_operands, m2l_plain, p2l_cuda,
-                                 p2l_operands, p2l_plain, reset_launch_counts)
-from repro_torch.solver import FmmSolver
+                                 m2l_cuda, m2l_operands, m2l_plain,
+                                 nbody_cuda, nbody_direct, nbody_plain,
+                                 p2l_cuda, p2l_operands, p2l_plain, p2p_cuda,
+                                 p2p_operands, p2p_plain, reset_launch_counts)
+from repro_torch.solver import FmmSolver, get_backend, register_backend
 
 pytestmark = pytest.mark.gpu
 
@@ -30,6 +36,14 @@ def cuda():
 
 def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
+
+
+def _main_counts(**kw):
+    """Expected launches per kernel: the main path's by default."""
+    want = {"classify": 1, "m2l": 1, "p2l": 1, "eval_fused": 1, "l2p": 0,
+            "p2p": 0, "nbody": 0}
+    want.update(kw)
+    return want
 
 
 @pytest.mark.parametrize("dtype,kernel", [("f64", "harmonic"),
@@ -61,6 +75,22 @@ def test_kernels_match_plain_versions(cuda, dtype, kernel):
     args, kw = eval_operands(local, mult[-1], plan.tree, plan.conn, cfg)
     assert _rel(torch.complex(*eval_fused_cuda(*args, **kw)),
                 torch.complex(*eval_fused_plain(*args, **kw))) <= tol
+    args, kw = p2p_operands(plan.tree, plan.conn, cfg)
+    assert _rel(torch.complex(*p2p_cuda(*args, **kw)),
+                torch.complex(*p2p_plain(*args, **kw))) <= tol
+    args, kw = l2p_operands(local, plan.tree, cfg)
+    got = l2p_cuda(*args, **kw)
+    assert _rel(torch.complex(*got), torch.complex(*l2p_plain(*args, **kw))) \
+        <= tol
+    assert (got[0][:, args[-1] < 0] == 0).all()
+    if kernel == "harmonic":
+        zr, zi, qr, qi = (x.contiguous() for x in (
+            plan.tree.z.real[0], plan.tree.z.imag[0], plan.tree.q.real[0],
+            plan.tree.q.imag[0]))
+        args = (zr[:2048], zi[:2048], zr, zi, qr, qi)
+        assert _rel(torch.complex(*nbody_cuda(*args)),
+                    torch.complex(*nbody_plain(*args))) <= \
+            (tol if dtype == "f64" else 1e-3)
 
 
 def test_apply_launches_each_kernel_once_and_matches_reference(cuda):
@@ -70,11 +100,46 @@ def test_apply_launches_each_kernel_once_and_matches_reference(cuda):
     assert solver.dispatched["apply"] == "cuda"
     reset_launch_counts()
     phi = solver.apply_checked(z, q)
-    assert set(launch_counts().values()) == {1}
+    assert launch_counts() == _main_counts()
     ref = FmmSolver.build(cfg, backend="reference").apply(z, q)
     assert _rel(phi, ref) <= 1e-10
     reset_launch_counts()
     zb, qb = torch.stack([z, z.flip(0)]), torch.stack([q, q.flip(0)])
     phib = solver.apply_batched(zb, qb)
-    assert set(launch_counts().values()) == {1}
+    assert launch_counts() == _main_counts()
     assert torch.equal(phib[0], phi)
+
+
+def test_per_phase_path_launches_and_matches_main_path(cuda):
+    """The "cuda" backend without its fused hooks: classify 1, M2L once
+    per level, P2L 1, L2P 1, P2P 1, the fused evaluation 0 — per apply
+    and per apply_batched; phi as the main path's."""
+    cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype="f64")
+    z, q = particles("layer", cfg.n, 2, device=cuda)
+    register_backend(dataclasses.replace(
+        get_backend("cuda", cuda), name="cuda-phases", m2l_fused=None,
+        eval_fused=None))
+    solver = FmmSolver.build(cfg, backend="cuda-phases")
+    want = _main_counts(m2l=cfg.nlevels, eval_fused=0, l2p=1, p2p=1)
+    reset_launch_counts()
+    phi = solver.apply_checked(z, q)
+    assert launch_counts() == want
+    main = FmmSolver.build(cfg).apply(z, q)
+    assert _rel(phi, main) <= 1e-10
+    reset_launch_counts()
+    zb, qb = torch.stack([z, z.flip(0)]), torch.stack([q, q.flip(0)])
+    phib = solver.apply_batched(zb, qb)
+    assert launch_counts() == want
+    assert torch.equal(phib[0], phi)
+
+
+def test_nbody_direct_launches_once_and_excludes_by_position(cuda):
+    z, q = particles("uniform", 4096, 3, device=cuda)
+    z[7] = z[3]
+    reset_launch_counts()
+    phi = nbody_direct(z, z, q)
+    assert launch_counts() == _main_counts(classify=0, m2l=0, p2l=0,
+                                           eval_fused=0, nbody=1)
+    assert torch.isfinite(phi).all()
+    from repro_torch.core.direct import direct_potential
+    assert _rel(phi, direct_potential(z, z, q)) <= 1e-10
