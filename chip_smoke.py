@@ -17,8 +17,10 @@ Runs top to bottom and exits nonzero on the first failure:
    f32; the direct N-body sum on N_SAMPLE of the particles as targets
    against all 2^20 sources), checks that a second launch is bitwise
    equal to the first, prints how many list entries each plan occupies,
-   and times kernel and plain version with CUDA events at the uniform
-   plan;
+   and at the uniform plan times each kernel (many back-to-back launches
+   on its staged operands between one pair of CUDA events) and its plain
+   version (CUDA events around each call), with the kernel's share of
+   its bound;
 4. main path: ``FmmSolver.build(fmm_config(1 << 20, p=17))`` on the
    default device and ``apply_checked`` on uniform, normal and layer
    particles (seed 0), in f32 and f64: the four main-path kernels launch
@@ -97,6 +99,10 @@ ACC_BOUND = {"f64": 2e-6, "f32": 5e-4}
 # HBM3 bandwidth)
 PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
 PEAK_BYTES = 3.35e12
+# Peak of a dense matrix product (work_of's third term): f64 on the FP64
+# tensor cores (mma m8n8k4, data sheet); f32 stays at the vector rate,
+# since TF32's 10-bit mantissa is too coarse for the f32 results.
+PEAK_DENSE = {"f32": 67e12, "f64": 67e12}
 
 KERNELS = {
     "classify": ("src/repro_torch/kernels/csrc/classify.cu",
@@ -189,7 +195,7 @@ def rel_err(a, b) -> float:
 
 def time_cuda(fn, reps: int, torch, warmup: int = 2) -> float:
     """Median milliseconds of ``reps`` calls, each between CUDA events,
-    after ``warmup`` warm-up calls."""
+    after ``warmup`` warm-up calls (host work inside a call counts)."""
     for _ in range(warmup):
         fn()
     times = []
@@ -204,28 +210,79 @@ def time_cuda(fn, reps: int, torch, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def work_of(name: str, args, kwargs, dt: str) -> tuple[float, float]:
-    """(flops, bytes) the function needs on these inputs: each input read
-    once and each output written once; flops counted on the list entries
-    that are actually occupied (transcendentals and divisions as one
-    operation each)."""
+def staged_launch(name: str, call):
+    """Run ``call`` once, recording the one launch it makes of kernel
+    ``name``; returns a function that repeats exactly that launch on the
+    same staged operands and outputs (no wrapper work around it)."""
+    from repro_torch.kernels.build import LIBRARIES
+
+    lib = LIBRARIES[name]
+    launch, seen = lib.launch, []
+
+    def record(symbol, *args):
+        seen.append((symbol, args))
+        return launch(symbol, *args)
+
+    lib.launch = record
+    try:
+        call()
+    finally:
+        del lib.launch
+    check(len(seen) == 1, f"{name}: {len(seen)} launches in one call")
+    symbol, args = seen[0]
+    return lambda: launch(symbol, *args)
+
+
+def time_kernel(fn, reps: int, torch, warmup: int = 2) -> float:
+    """Milliseconds per launch of ``reps`` back-to-back calls of ``fn``
+    between one pair of CUDA events, after ``warmup`` calls. A spin
+    kernel (``torch.cuda._sleep``) holds the stream until the host has
+    enqueued every call, so no host time between launches is counted;
+    the spin is lengthened until the start event is still pending when
+    the last call is enqueued."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 22
+    while True:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        queued_first = not a.query()
+        b.synchronize()
+        if queued_first:
+            return a.elapsed_time(b) / reps
+        check(cycles < 1 << 34, "the host could not keep ahead of the card")
+        cycles *= 4
+
+
+def work_of(name: str, args, kwargs, dt: str) -> tuple[float, float, float]:
+    """(flops, bytes, dense flops) the function needs on these inputs:
+    each input read once and each output written once; flops counted on
+    the list entries that are actually occupied (transcendentals and
+    divisions as one operation each); the dense flops are the part of
+    the flops that is a dense matrix product (M2L's product with H)."""
     sz = 8 if dt == "f64" else 4
     if name == "classify":
         cand, valid, centers, radii = args
         pairs = int(valid.sum())
         nbytes = cand.numel() * 4 + 3 * radii.numel() * sz + 5 * cand.numel() * 4
-        return 16.0 * pairs, float(nbytes)
+        return 16.0 * pairs, float(nbytes), 0.0
     if name == "m2l":
         weak, ar = args[0], args[1]
         P = ar.shape[-1]
         p = P - 1
         entries = int((weak >= 0).sum())
         per = 4 * P * P + 6 * P + 12 * p + 8 * P
+        # weak lists, multipoles, centers and radii, H; the result
         nbytes = (weak.numel() * 4 + 2 * ar.numel() * sz
-                  + sum(a.numel() for a in args[3:7]) * sz + P * P * sz
-                  + sum(a.numel() for a in args[8:] if a is not None) * sz
+                  + 3 * args[3].numel() * sz + P * P * sz
                   + 2 * ar.numel() * sz)
-        return float(per * entries), float(nbytes)
+        return float(per * entries), float(nbytes), 4.0 * P * P * entries
     if name == "p2l":
         lists, xr = args[0], args[4]
         p = kwargs["p"]
@@ -234,22 +291,22 @@ def work_of(name: str, args, kwargs, dt: str) -> tuple[float, float]:
         per_particle = 14 + 8 * (p + 1)
         nbytes = (lists.numel() * 4 + 3 * args[1].numel() * sz
                   + 4 * xr.numel() * sz + 2 * args[1].numel() * (p + 1) * sz)
-        return float(entries * n * per_particle), float(nbytes)
+        return float(entries * n * per_particle), float(nbytes), 0.0
     if name == "p2p":
         lists, zr = args[0], args[1]
         B, nb, n = zr.shape
         pairs = int((lists >= 0).sum()) * n * n
         nbytes = lists.numel() * 4 + 6 * zr.numel() * sz + args[5].numel() * 4
-        return 14.0 * pairs, float(nbytes)
+        return 14.0 * pairs, float(nbytes), 0.0
     if name == "l2p":
         br, tr, rk = args[0], args[2], args[4]
         p = kwargs["p"]
         nbytes = 2 * br.numel() * sz + 4 * tr.numel() * sz + rk.numel() * 4
-        return float(tr.numel() * 8 * p), float(nbytes)
+        return float(tr.numel() * 8 * p), float(nbytes), 0.0
     if name == "nbody":
         n, m = args[0].numel(), args[2].numel()
         # the targets are sources too: each target's own pair drops out
-        return 14.0 * (n * m - n), float((4 * n + 4 * m) * sz)
+        return 14.0 * (n * m - n), float((4 * n + 4 * m) * sz), 0.0
     # eval_fused
     p2p, m2p, zr = args[0], args[1], args[2]
     p = kwargs["p"]
@@ -263,7 +320,13 @@ def work_of(name: str, args, kwargs, dt: str) -> tuple[float, float]:
         flops += int((m2p >= 0).sum()) * n * (8 * p + 14)
         nbytes += (m2p.numel() * 4 + 2 * kwargs["ar"].numel() * sz
                    + 3 * kwargs["mrho"].numel() * sz)
-    return float(flops), float(nbytes)
+    return float(flops), float(nbytes), 0.0
+
+
+def ops_seconds(flops: float, dense: float, dt: str) -> float:
+    """Least time of ``flops`` operations of which ``dense`` are a dense
+    matrix product (each part at its own peak)."""
+    return (flops - dense) / PEAK_FLOPS[dt] + dense / PEAK_DENSE[dt]
 
 
 def grow_caps(cfg, margins: dict):
@@ -332,8 +395,35 @@ def capture(cfg, z, q, torch):
                 "p2p": int((conn.p2p >= 0).sum()),
                 "p2l": int((conn.p2l >= 0).sum()),
                 "m2p": int((conn.m2p >= 0).sum()),
+                "m2p_leaf_max": int((conn.m2p >= 0).sum(-1).max()),
                 "pairs_nbody": N_SAMPLE * cfg.n - N_SAMPLE}
     return cfg, cap, occupied
+
+
+def kernel_impls(cfg) -> dict:
+    """Per kernel, (its wrapper, its plain version), each called as
+    ``f(args, kwargs)`` on the operands that ``capture`` records."""
+    from repro_torch.kernels import (eval_fused_cuda, eval_fused_plain,
+                                     l2p_cuda, l2p_plain, leaf_classify_cuda,
+                                     leaf_classify_plain, m2l_cuda,
+                                     m2l_plain, nbody_cuda, nbody_plain,
+                                     p2l_cuda, p2l_plain, p2p_cuda,
+                                     p2p_plain)
+
+    return {
+        "classify": (lambda a, k: leaf_classify_cuda(*a, cfg),
+                     lambda a, k: leaf_classify_plain(*a, cfg)),
+        "m2l": (lambda a, k: m2l_cuda(*a), lambda a, k: m2l_plain(*a)),
+        "p2l": (lambda a, k: p2l_cuda(*a, **k),
+                lambda a, k: p2l_plain(*a, **k)),
+        "eval_fused": (lambda a, k: eval_fused_cuda(*a, **k),
+                       lambda a, k: eval_fused_plain(*a, **k)),
+        "p2p": (lambda a, k: p2p_cuda(*a, **k),
+                lambda a, k: p2p_plain(*a, **k)),
+        "l2p": (lambda a, k: l2p_cuda(*a, **k),
+                lambda a, k: l2p_plain(*a, **k)),
+        "nbody": (lambda a, k: nbody_cuda(*a), lambda a, k: nbody_plain(*a)),
+    }
 
 
 def magnitude_sum(tzr, tzi, szr, szi, qr, qi, torch) -> "torch.Tensor":
@@ -366,12 +456,6 @@ def kernel_phase(dt: str, torch) -> list[dict]:
     uniform plan (the default caps)."""
     from repro_torch.configs import fmm_config
     from repro_torch.data import particles
-    from repro_torch.kernels import (eval_fused_cuda, eval_fused_plain,
-                                     l2p_cuda, l2p_plain, leaf_classify_cuda,
-                                     leaf_classify_plain, m2l_cuda,
-                                     m2l_plain, nbody_cuda, nbody_plain,
-                                     p2l_cuda, p2l_plain, p2p_cuda,
-                                     p2p_plain)
 
     entries_of = {"classify": ("pairs",), "m2l": ("weak",), "p2l": ("p2l",),
                   "eval_fused": ("p2p", "m2p"), "p2p": ("p2p",),
@@ -383,22 +467,7 @@ def kernel_phase(dt: str, torch) -> list[dict]:
                                      q, torch)
         print(f"plan[{dt}/{dist}]: caps strong={cfg.strong_cap} "
               f"weak={cfg.weak_cap}; occupied entries {occupied}", flush=True)
-        impls = {
-            "classify": (lambda a, k: leaf_classify_cuda(*a, cfg),
-                         lambda a, k: leaf_classify_plain(*a, cfg)),
-            "m2l": (lambda a, k: m2l_cuda(*a), lambda a, k: m2l_plain(*a)),
-            "p2l": (lambda a, k: p2l_cuda(*a, **k),
-                    lambda a, k: p2l_plain(*a, **k)),
-            "eval_fused": (lambda a, k: eval_fused_cuda(*a, **k),
-                           lambda a, k: eval_fused_plain(*a, **k)),
-            "p2p": (lambda a, k: p2p_cuda(*a, **k),
-                    lambda a, k: p2p_plain(*a, **k)),
-            "l2p": (lambda a, k: l2p_cuda(*a, **k),
-                    lambda a, k: l2p_plain(*a, **k)),
-            "nbody": (lambda a, k: nbody_cuda(*a),
-                      lambda a, k: nbody_plain(*a)),
-        }
-        for name, (kern, plain) in impls.items():
+        for name, (kern, plain) in kernel_impls(cfg).items():
             args, kwargs = cap[name]
             first = kern(args, kwargs)
             second = kern(args, kwargs)
@@ -449,11 +518,12 @@ def kernel_phase(dt: str, torch) -> list[dict]:
             row["max_abs_err"] = max(row["max_abs_err"], abs_err)
             if dist != "uniform":
                 continue
-            ms = time_cuda(lambda: kern(args, kwargs), KERNEL_REPS, torch)
+            ms = time_kernel(staged_launch(name, lambda: kern(args, kwargs)),
+                             KERNEL_REPS, torch)
             plain_ms = time_cuda(lambda: plain(args, kwargs), PLAIN_REPS,
                                  torch, warmup=1)
-            flops, nbytes = work_of(name, args, kwargs, dt)
-            t_ops, t_bytes = flops / PEAK_FLOPS[dt], nbytes / PEAK_BYTES
+            flops, nbytes, dense = work_of(name, args, kwargs, dt)
+            t_ops, t_bytes = ops_seconds(flops, dense, dt), nbytes / PEAK_BYTES
             row.update(ms=ms, plain_ms=plain_ms,
                        bound_ms=1e3 * max(t_ops, t_bytes),
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -465,7 +535,9 @@ def kernel_phase(dt: str, torch) -> list[dict]:
                 row.update(plain_shape=[N_SAMPLE, N], ms_plain_shape=ms)
             print(f"time {tag}: ms={ms:.4f} plain_ms={plain_ms:.3f} "
                   f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; "
-                  f"{flops:.3e} flop, {nbytes:.3e} B)", flush=True)
+                  f"{flops:.3e} flop of which {dense:.3e} dense, {nbytes:.3e} "
+                  f"B); share of bound "
+                  f"{row['bound_ms'] / ms:.3f}", flush=True)
         del cap, z, q
         torch.cuda.empty_cache()
     return list(rows.values())
@@ -702,12 +774,13 @@ def direct_phase(rows: list, main: dict, torch) -> None:
         err = rel_error_inf(got, ref)
         check(gate <= tol, f"direct[{dt}]: {gate:.3e} > {tol} against the "
               "f64 direct sum")
-        ms = time_cuda(lambda: nbody_direct(z, z, q), 3, torch, warmup=1)
+        ms = time_kernel(staged_launch("nbody", lambda: nbody_direct(z, z, q)),
+                         3, torch, warmup=1)
         fmm_ms = 1e3 * m["secs"]
         print(f"direct[{dt}] N={N}: nbody_direct {ms:.2f} ms (CUDA events, "
-              f"one launch); FMM apply {fmm_ms:.2f} ms (host clock); "
-              f"direct/FMM = {ms / fmm_ms:.2f}; vs the f64 direct sum: "
-              f"gate {gate:.3e} (limit {tol:g}), rel_err_inf {err:.3e}",
+              f"3 back-to-back launches); FMM apply {fmm_ms:.2f} ms (host "
+              f"clock); direct/FMM = {ms / fmm_ms:.2f}; vs the f64 direct "
+              f"sum: gate {gate:.3e} (limit {tol:g}), rel_err_inf {err:.3e}",
               flush=True)
         row = next(r for r in rows if r["name"] == f"nbody_{dt}")
         sz = 8 if dt == "f64" else 4
@@ -769,11 +842,13 @@ def main() -> int:
     for name, log in logs.items():
         print(f"ptxas {name}:")
         print("\n".join(ptxas_summary(log)), flush=True)
-    smem = {dt: {name: lib.smem_bytes(sz, 64, P_TERMS + 1)
+    # list widths of the uniform plan: weak 128, the others 48
+    smem = {dt: {name: lib.smem_bytes(sz, 64, P_TERMS + 1,
+                                      128 if name == "m2l" else 48)
                  for name, lib in LIBRARIES.items()}
             for dt, sz in (("f32", 4), ("f64", 8))}
     print(f"dynamic shared memory per block (bytes, from each launcher), "
-          f"p={P_TERMS}, n_max=64: {smem}", flush=True)
+          f"p={P_TERMS}, n_max=64, lists 48 (weak 128): {smem}", flush=True)
 
     rows = []
     for dt in ("f32", "f64"):

@@ -1,0 +1,70 @@
+#!/usr/bin/env python3
+"""Time the port's kernels on one CUDA card, for one source tree.
+
+    python3 scripts/time_kernels.py [--src DIR] [--label TEXT]
+
+Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``;
+another tree's ``src``, e.g. an earlier commit unpacked with ``git
+archive``, compares two versions of a kernel in one call), builds its
+kernels, and for the uniform N = 2^20, p = 17 plan in f32 and f64
+captures each kernel's operands through the FMM hooks and times the one
+launch its wrapper makes the way ``chip_smoke.py`` does: many
+back-to-back launches of the recorded launch on the staged operands
+between one pair of CUDA events (``chip_smoke.time_kernel``). The
+N-body kernel runs at chip_smoke's sampled shape (4096 targets against
+all 2^20 sources). Prints one JSON line per dtype: the label, the dtype,
+the plan's occupied list entries and milliseconds per launch by kernel.
+
+Needs a CUDA card; exits nonzero without one.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+import chip_smoke as smoke  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="directory that holds the repro_torch package")
+    ap.add_argument("--label", default="", help="tag of the printed lines")
+    ap.add_argument("--reps", type=int, default=smoke.KERNEL_REPS)
+    args = ap.parse_args()
+    sys.path.insert(0, str(Path(args.src).resolve()))
+
+    import torch
+    if not torch.cuda.is_available():
+        print("time_kernels: no CUDA card in this process", file=sys.stderr)
+        return 2
+    import repro_torch
+    from repro_torch.configs import fmm_config
+    from repro_torch.data import particles
+    from repro_torch.kernels import build_all
+
+    print(f"{args.label}: repro_torch from {Path(repro_torch.__file__).parent}"
+          f"; {smoke.card_line()}", flush=True)
+    build_all()
+    for dt in ("f32", "f64"):
+        z, q = particles("uniform", smoke.N, smoke.SEED)
+        cfg, cap, occupied = smoke.capture(
+            fmm_config(smoke.N, p=smoke.P_TERMS, dtype=dt), z, q, torch)
+        ms = {}
+        for name, (kern, _) in smoke.kernel_impls(cfg).items():
+            a, k = cap[name]
+            call = smoke.staged_launch(name, lambda: kern(a, k))
+            ms[name] = smoke.time_kernel(call, args.reps, torch)
+        print(json.dumps({"label": args.label, "dtype": dt,
+                          "occupied": occupied, "ms": ms}), flush=True)
+        del cap, z, q
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

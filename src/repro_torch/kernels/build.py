@@ -114,16 +114,17 @@ class CudaLibrary:
                 fn.restype = ctypes.c_int
             lib.repro_error_string.argtypes = [ctypes.c_int]
             lib.repro_error_string.restype = ctypes.c_char_p
-            lib.repro_smem_bytes.argtypes = [I, I, I]
+            lib.repro_smem_bytes.argtypes = [I, I, I, I]
             lib.repro_smem_bytes.restype = ctypes.c_int
             self._lib = lib
         return self._lib
 
-    def smem_bytes(self, elem: int, n: int, P: int) -> int:
+    def smem_bytes(self, elem: int, n: int, P: int, S: int) -> int:
         """Dynamic shared memory per block (bytes) that the launcher gives
-        the kernel for ``elem``-byte reals, ``n``-particle leaves and
-        ``P`` coefficients (the launcher's own rule, read back)."""
-        return self.lib().repro_smem_bytes(elem, n, P)
+        the kernel for ``elem``-byte reals, ``n``-particle leaves, ``P``
+        coefficients and ``S``-wide lists (the launcher's own rule, read
+        back)."""
+        return self.lib().repro_smem_bytes(elem, n, P, S)
 
     def launch(self, symbol: str, *args) -> None:
         """Call ``symbol`` with tensors (as device pointers), ints and

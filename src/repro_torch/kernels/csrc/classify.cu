@@ -126,7 +126,7 @@ extern "C" int classify_f64(const void* cand, const void* cx, const void* cy,
 
 // Dynamic shared memory per block (bytes): none, the kernel reads its
 // geometry straight from global memory.
-extern "C" int repro_smem_bytes(int elem, int n, int P) {
-  (void)elem; (void)n; (void)P;
+extern "C" int repro_smem_bytes(int elem, int n, int P, int S) {
+  (void)elem; (void)n; (void)P; (void)S;
   return 0;
 }

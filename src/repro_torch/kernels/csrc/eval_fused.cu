@@ -1,6 +1,6 @@
 // The whole FMM evaluation phase in one launch: L2P, then P2P over the
-// leaf strong (p2p) list, then M2P over the m2p list, into one phi value
-// per target held in a register and written once.
+// leaf strong (p2p) list, then M2P over the m2p list, into phi values
+// held in registers per target and written once.
 //
 // Replaces the Pallas kernel repro/kernels/eval/fused.py
 // (_eval_fused_pallas, pallas_call at :205; wrapper
@@ -13,25 +13,220 @@
 //          w = rho_s/(z - z0_s), gated on rho_s > 0 as in fused.py:108-114
 //
 // Self-interaction is excluded by global particle rank, never by
-// position, so distinct coincident particles keep their mutual term.
+// position, so distinct coincident particles keep their (non-finite)
+// mutual term.
 //
 // Bound on the H100: operations. Each P2P pair is ~12 flops plus one
-// reciprocal (harmonic) or a log and an atan2 (log) against source data
-// the block stages once per slot; each M2P target costs ~8p flops per
-// slot. Device-memory traffic is the particle planes once per list
-// entry, far below the flop time.
+// reciprocal (harmonic) or a log and an atan2 (log); each M2P target
+// costs ~8p flops per slot. Device-memory traffic is the particle planes
+// once per list entry, far below the flop time.
 //
-// Design: one block owns one target leaf, one thread per target slot
-// (n_max = 64 at the paper's N_d). For each p2p slot the block stages the
-// source box's x, y, q (re, im) and ranks in shared memory and every
-// thread sums the pairwise terms of that slot, then adds the slot's sum
-// to its phi. For each m2p slot the block stages the (p+1) complex
-// multipole row; each thread runs the Horner in w. Masked slots (-1) are
-// skipped. No atomics: results are bitwise reproducible.
+// Design:
+// 1. One warp owns one target leaf (four leaves a block); every lane owns
+//    two targets, t and t + 32, so each staged source feeds two pairs
+//    from one shared-memory load. The warp reads its p2p and m2p list
+//    rows once, coalesced, and compacts the occupied slots in list order
+//    with a ballot: no dependent list load per slot.
+// 2. Source leaves are staged as packed (x, y, q_r, q_i) records (one
+//    16-byte shared load per source in f32, two in f64) in a ring of two
+//    stages filled with cp.async: the next leaf arrives while the current
+//    one is summed. Only warp barriers: a warp never waits on another.
+// 3. Padded source slots are never read: the static leaf layout pads at
+//    the tail (kernels/common.py:dense_rank_planes), so each staged
+//    leaf's valid count (one ballot over its staged ranks) bounds the
+//    loop. The rank test runs only in the slot whose source is the
+//    target's own leaf, where it reduces to slot != target slot.
+// 4. n = 64 (the paper's N_d = 45 gives n_max = 64) is a template
+//    instantiation: a full leaf runs a loop of compile-time length 64,
+//    unrolled by 16 (unrolled fully, its body no longer fits the
+//    instruction cache and ran slower on the card); other n take the
+//    generic loop (64 targets a pass). Launch bounds of five 4-warp
+//    blocks an SM cap the registers at 102.
+// 5. The harmonic reciprocal is rcp.approx plus Newton refinement (one
+//    step in f32; in f64 one cubic step from the ~2^-22 seed) instead of
+//    an IEEE division; a coincident pair of distinct particles still
+//    gives a non-finite phi.
+// 6. All occupied m2p rows (coefficients, center, radius) are staged in
+//    one pass with one warp barrier, in the ring's space once the P2P
+//    sums are done. The L2P and M2P Horner loops and the log kernel's
+//    log/atan2 are unchanged. No atomics: results are bitwise
+//    reproducible and a problem's row of a batch equals its own apply.
 #include "common.cuh"
 
+constexpr int WARPS = 4;       // target leaves per block, one warp each
+                               // (fewer where a leaf's ring is large)
+constexpr int NSTAGE = 2;      // source leaves in flight per warp
+constexpr int NFIX = 64;       // n_max at the paper's N_d
+constexpr int GROUP = 64;      // targets per pass of a warp: two per lane
+
+template <typename T> struct alignas(16) Rec { T x, y, qr, qi; };
+
+// The per-warp staging region in reals: the source ring, reused for the
+// m2p rows (2P coefficients, center and radius each).
+static __host__ __device__ int region_elems(int n, int P) {
+  return NSTAGE * n * 4 > 2 * P + 3 ? NSTAGE * n * 4 : 2 * P + 3;
+}
+
+static __host__ __device__ size_t warp_bytes(size_t elem, int n, int P,
+                                             int S, int Sm) {
+  const size_t b = elem * (size_t)region_elems(n, P)
+                   + sizeof(int32_t) * (size_t)(NSTAGE * n + S + Sm);
+  return (b + 15) / 16 * 16;
+}
+
+// Asynchronous 4- or 8-byte copies from global to shared memory
+// (cp.async, sm_80 and later), committed and awaited in groups.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                 :: "r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// 1/d: the hardware estimate refined by Newton. d = 0 gives NaN (as 0/0
+// does in the IEEE form q * (1/0) * 0), never a finite value.
+__device__ __forceinline__ float fast_rcp(float d) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
+  return fmaf(r, fmaf(-d, r, 1.0f), r);
+}
+
+__device__ __forceinline__ double fast_rcp(double d) {
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(d));
+  const double e = fma(-d, r, 1.0);
+  return fma(r, fma(e, e, e), r);      // r (1 + e + e^2): error ~e^3
+}
+
+// Compact one list row's occupied slots (>= 0) into `out` in list
+// order; returns their count. All 32 lanes take part.
+__device__ __forceinline__ int compact(const int32_t* __restrict__ row,
+                                       int S, int32_t* out, int lane) {
+  int cnt = 0;
+  for (int s0 = 0; s0 < S; s0 += 32) {
+    const int v = s0 + lane < S ? row[s0 + lane] : -1;
+    const unsigned m = __ballot_sync(0xffffffffu, v >= 0);
+    if (v >= 0) out[cnt + __popc(m & ((1u << lane) - 1u))] = v;
+    cnt += __popc(m);
+  }
+  return cnt;
+}
+
+// One pair's term G(z, x) added to (sr, si); `self` drops it (the
+// target's own slot, only tested where SELF).
+template <typename T, bool LOG, bool SELF>
+__device__ __forceinline__ void pair_term(const Rec<T>& s, bool self, T zr,
+                                          T zi, T& sr, T& si) {
+  const T dx = s.x - zr, dy = s.y - zi;          // z_src - z_tgt
+  const T d2 = dx * dx + dy * dy;
+  if constexpr (LOG) {
+    T lr = T(0.5) * log(d2), li = atan2(-dy, -dx);
+    if (SELF && self) {
+      lr = T(0);
+      li = T(0);
+    }
+    sr += s.qr * lr - s.qi * li;
+    si += s.qr * li + s.qi * lr;
+  } else {
+    T inv = fast_rcp(d2);                         // q/(dx + i dy)
+    if (SELF && self) inv = T(0);
+    sr += (s.qr * dx + s.qi * dy) * inv;
+    si += (s.qi * dx - s.qr * dy) * inv;
+  }
+}
+
+// The sums over one staged source leaf's `cnt` valid records at the
+// lane's two targets (slots t0, t1).
+template <typename T, bool LOG, bool SELF, int NU>
+__device__ __forceinline__ void leaf_sum(const Rec<T>* __restrict__ src,
+                                         int cnt, int t0, int t1, T z0r,
+                                         T z0i, T z1r, T z1i, T& s0r,
+                                         T& s0i, T& s1r, T& s1i) {
+  s0r = s0i = s1r = s1i = T(0);
+  if constexpr (NU > 0) {
+    if (cnt == NU) {
+#pragma unroll 16
+      for (int j = 0; j < NU; ++j) {
+        const Rec<T> s = src[j];
+        pair_term<T, LOG, SELF>(s, j == t0, z0r, z0i, s0r, s0i);
+        pair_term<T, LOG, SELF>(s, j == t1, z1r, z1i, s1r, s1i);
+      }
+      return;
+    }
+  }
+#pragma unroll 4
+  for (int j = 0; j < cnt; ++j) {
+    const Rec<T> s = src[j];
+    pair_term<T, LOG, SELF>(s, j == t0, z0r, z0i, s0r, s0i);
+    pair_term<T, LOG, SELF>(s, j == t1, z1r, z1i, s1r, s1i);
+  }
+}
+
+// Local-expansion Horner at the two pre-centered targets.
+template <typename T>
+__device__ __forceinline__ void l2p_seed(const T* __restrict__ cr,
+                                         const T* __restrict__ ci, int P,
+                                         T x0r, T x0i, T x1r, T x1i, T& h0r,
+                                         T& h0i, T& h1r, T& h1i) {
+  h0r = h1r = __ldg(cr + P - 1);
+  h0i = h1i = __ldg(ci + P - 1);
+  for (int j = P - 2; j >= 0; --j) {
+    const T c = __ldg(cr + j), d = __ldg(ci + j);
+    const T n0 = h0r * x0r - h0i * x0i + c;
+    h0i = h0r * x0i + h0i * x0r + d;
+    h0r = n0;
+    const T n1 = h1r * x1r - h1i * x1i + c;
+    h1i = h1r * x1i + h1i * x1r + d;
+    h1r = n1;
+  }
+}
+
+// One staged m2p row a = (a_r[P], a_i[P], center re, center im, rho) at
+// one target z, added to (phr, phi).
 template <typename T, bool LOG>
-__global__ void eval_fused_kernel(
+__device__ __forceinline__ void m2p_term(const T* __restrict__ a, int P,
+                                         T zr, T zi, T& phr, T& phi) {
+  const T* a_i = a + P;
+  const T cr = a[2 * P], ci = a[2 * P + 1], rh = a[2 * P + 2];
+  const T dxr = zr - cr, dxi = zi - ci;         // z - z0_src
+  const T d2 = dxr * dxr + dxi * dxi;
+  const bool ok = rh > T(0);
+  const T k = ok ? T(1) / d2 : T(0);
+  const T wr = rh * dxr * k, wi = -rh * dxi * k;   // rho / (z - z0)
+  T hr = a[P - 1], hi = a_i[P - 1];
+  for (int j = P - 2; j >= 1; --j) {
+    const T nr = hr * wr - hi * wi + a[j];
+    hi = hr * wi + hi * wr + a_i[j];
+    hr = nr;
+  }
+  T fr = hr * wr - hi * wi, fi = hr * wi + hi * wr;
+  if (LOG) {                                    // + a_0 log(z - z0_src)
+    const T lr = ok ? T(0.5) * log(d2) : T(0);
+    const T li = ok ? atan2(dxi, dxr) : T(0);
+    fr += a[0] * lr - a_i[0] * li;
+    fi += a[0] * li + a_i[0] * lr;
+  }
+  if (ok) {
+    phr += fr;
+    phi += fi;
+  }
+}
+
+template <typename T, bool LOG, int NF>
+__global__ void __launch_bounds__(WARPS * 32, 5) eval_fused_kernel(
     const int32_t* __restrict__ p2p, int S, const int32_t* __restrict__ m2p,
     int Sm, const T* __restrict__ zr, const T* __restrict__ zi,
     const T* __restrict__ qr, const T* __restrict__ qi,
@@ -39,103 +234,149 @@ __global__ void eval_fused_kernel(
     const T* __restrict__ ti, const T* __restrict__ br,
     const T* __restrict__ bi, const T* __restrict__ ar,
     const T* __restrict__ ai, const T* __restrict__ mcr,
-    const T* __restrict__ mci, const T* __restrict__ mrho, int nb, int n,
+    const T* __restrict__ mci, const T* __restrict__ mrho, int nb, int n_,
     int P, T* __restrict__ outr, T* __restrict__ outi) {
+  const int n = NF > 0 ? NF : n_;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int box = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (box >= nb) return;                 // warp-uniform: warp barriers only
+  const long long b = blockIdx.y, row = b * nb + box;
+
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_x = reinterpret_cast<T*>(smem_raw);
-  T* s_y = s_x + n;
-  T* s_qr = s_y + n;
-  T* s_qi = s_qr + n;
-  T* s_cr = s_qi + n;                          // a coefficient row, P
-  T* s_ci = s_cr + P;
-  int32_t* s_rk = reinterpret_cast<int32_t*>(s_ci + P);
+  T* region = reinterpret_cast<T*>(
+      smem_raw + warp * warp_bytes(sizeof(T), n, P, S, Sm));
+  Rec<T>* ring = reinterpret_cast<Rec<T>*>(region);
+  const int relems = region_elems(n, P);
+  int32_t* s_rank = reinterpret_cast<int32_t*>(region + relems);
+  int32_t* s_list = s_rank + NSTAGE * n;
 
-  const int t = threadIdx.x, nt = blockDim.x;
-  const long long b = blockIdx.y;
-  const int box = blockIdx.x;
-  const long long row = b * nb + box;
-  const bool act = t < n;
-  const T tzr = act ? zr[row * n + t] : T(0);
-  const T tzi = act ? zi[row * n + t] : T(0);
-  const int trk = act ? rk[(long long)box * n + t] : -1;
+  // Read both lists once.
+  const int np = compact(p2p + row * S, S, s_list, lane);
+  const int nm = m2p != nullptr ? compact(m2p + row * Sm, Sm, s_list + S, lane)
+                                : 0;
 
-  // L2P seed: Horner of the local block at the pre-centered position.
-  for (int j = t; j < P; j += nt) {
-    s_cr[j] = br[row * P + j];
-    s_ci[j] = bi[row * P + j];
-  }
-  __syncthreads();
-  T phr = s_cr[P - 1], phi_ = s_ci[P - 1];
-  {
-    const T xr = act ? tr[row * n + t] : T(0);
-    const T xi = act ? ti[row * n + t] : T(0);
-    for (int j = P - 2; j >= 0; --j) {
-      const T nr = phr * xr - phi_ * xi + s_cr[j];
-      phi_ = phr * xi + phi_ * xr + s_ci[j];
-      phr = nr;
+  // Stage source leaf s_list[s] into ring slot s % NSTAGE.
+  auto issue = [&](int s) {
+    const int src = s_list[s];
+    const long long sb = (b * nb + src) * n, rb = (long long)src * n;
+    Rec<T>* dst = ring + (s % NSTAGE) * n;
+    int32_t* rdst = s_rank + (s % NSTAGE) * n;
+    for (int j = lane; j < n; j += 32) {
+      cp_async(&dst[j].x, zr + sb + j);
+      cp_async(&dst[j].y, zi + sb + j);
+      cp_async(&dst[j].qr, qr + sb + j);
+      cp_async(&dst[j].qi, qi + sb + j);
+      cp_async(rdst + j, rk + rb + j);
     }
-  }
+  };
 
-  // P2P over the strong (p2p) list.
-  for (int s = 0; s < S; ++s) {
-    const int src = p2p[row * S + s];
-    if (src < 0) continue;                     // block-uniform
-    __syncthreads();                           // previous stage consumed
-    stage_source_leaf(zr, zi, qr, qi, rk, (b * nb + src) * n,
-                      (long long)src * n, n, s_x, s_y, s_qr, s_qi, s_rk);
-    __syncthreads();
-    T sr, si;
-    p2p_leaf_sum<T, LOG>(s_x, s_y, s_qr, s_qi, s_rk, n, tzr, tzi, trk, sr,
-                         si);
-    phr += sr;
-    phi_ += si;
-  }
+  for (int g0 = 0; g0 < n; g0 += GROUP) {
+    const int t0 = g0 + lane, t1 = g0 + 32 + lane;
+    const bool a0 = t0 < n, a1 = t1 < n;
+    const T z0r = a0 ? zr[row * n + t0] : T(0);
+    const T z0i = a0 ? zi[row * n + t0] : T(0);
+    const T z1r = a1 ? zr[row * n + t1] : T(0);
+    const T z1i = a1 ? zi[row * n + t1] : T(0);
+    T p0r, p0i, p1r, p1i;
+    l2p_seed(br + row * P, bi + row * P, P, a0 ? tr[row * n + t0] : T(0),
+             a0 ? ti[row * n + t0] : T(0), a1 ? tr[row * n + t1] : T(0),
+             a1 ? ti[row * n + t1] : T(0), p0r, p0i, p1r, p1i);
 
-  // M2P over the m2p list.
-  for (int s = 0; s < Sm; ++s) {
-    const int src = m2p[row * Sm + s];
-    if (src < 0) continue;                     // block-uniform
-    __syncthreads();
-    const long long sr_ = b * nb + src;
-    for (int j = t; j < P; j += nt) {
-      s_cr[j] = ar[sr_ * P + j];
-      s_ci[j] = ai[sr_ * P + j];
+    // P2P: a two-stage cp.async ring over the compacted list.
+    __syncwarp();                        // lists written; region free
+    for (int s = 0; s < NSTAGE - 1; ++s) {
+      if (s < np) issue(s);
+      cp_async_commit();
     }
-    __syncthreads();
-    const T cr = mcr[sr_], ci = mci[sr_], rh = mrho[sr_];
-    const T dxr = tzr - cr, dxi = tzi - ci;    // z - z0_src
-    const T d2 = dxr * dxr + dxi * dxi;
-    const bool ok = rh > T(0);
-    const T k = ok ? T(1) / d2 : T(0);
-    const T wr = rh * dxr * k, wi = -rh * dxi * k;    // rho / (z - z0)
-    T hr = s_cr[P - 1], hi = s_ci[P - 1];
-    for (int j = P - 2; j >= 1; --j) {
-      const T nr = hr * wr - hi * wi + s_cr[j];
-      hi = hr * wi + hi * wr + s_ci[j];
-      hr = nr;
+    for (int s = 0; s < np; ++s) {
+      if (s + NSTAGE - 1 < np) issue(s + NSTAGE - 1);
+      cp_async_commit();
+      cp_async_wait<NSTAGE - 1>();
+      __syncwarp();                      // every lane's copies landed
+      const Rec<T>* rec = ring + (s % NSTAGE) * n;
+      const int32_t* rks = s_rank + (s % NSTAGE) * n;
+      int cnt = 0;                       // valid sources: a prefix
+      for (int j0 = 0; j0 < n; j0 += 32)
+        cnt += __popc(__ballot_sync(0xffffffffu,
+                                    j0 + lane < n && rks[j0 + lane] >= 0));
+      T s0r, s0i, s1r, s1i;
+      if (s_list[s] == box)              // the target's own leaf
+        leaf_sum<T, LOG, true, 0>(rec, cnt, t0, t1, z0r, z0i, z1r, z1i, s0r,
+                                  s0i, s1r, s1i);
+      else
+        leaf_sum<T, LOG, false, LOG ? 0 : NF>(rec, cnt, t0, t1, z0r, z0i,
+                                              z1r, z1i, s0r, s0i, s1r, s1i);
+      p0r += s0r;
+      p0i += s0i;
+      p1r += s1r;
+      p1i += s1i;
+      __syncwarp();                      // slot consumed before refill
     }
-    T fr = hr * wr - hi * wi, fi = hr * wi + hi * wr;
-    if (LOG) {                                 // + a_0 log(z - z0_src)
-      const T lr = ok ? T(0.5) * log(d2) : T(0);
-      const T li = ok ? atan2(dxi, dxr) : T(0);
-      fr += s_cr[0] * lr - s_ci[0] * li;
-      fi += s_cr[0] * li + s_ci[0] * lr;
+
+    // M2P: stage the occupied rows (as many as the region holds; all of
+    // them at the paper's sizes), then Horner per target.
+    const int rowlen = 2 * P + 3;
+    const int R = relems / rowlen;
+    for (int m0 = 0; m0 < nm; m0 += R) {
+      const int cm = min(R, nm - m0);
+      for (int u = lane; u < cm * rowlen; u += 32) {
+        const int i = u / rowlen, k = u - i * rowlen;
+        const long long sr = b * nb + s_list[S + m0 + i];
+        region[u] = k < P         ? ar[sr * P + k]
+                    : k < 2 * P   ? ai[sr * P + k - P]
+                    : k == 2 * P  ? mcr[sr]
+                    : k == 2 * P + 1 ? mci[sr]
+                                     : mrho[sr];
+      }
+      __syncwarp();
+      for (int i = 0; i < cm; ++i) {
+        m2p_term<T, LOG>(region + i * rowlen, P, z0r, z0i, p0r, p0i);
+        m2p_term<T, LOG>(region + i * rowlen, P, z1r, z1i, p1r, p1i);
+      }
+      __syncwarp();                      // rows consumed before restaging
     }
-    if (ok) {
-      phr += fr;
-      phi_ += fi;
+    if (a0) {
+      outr[row * n + t0] = p0r;
+      outi[row * n + t0] = p0i;
     }
-  }
-  if (act) {
-    outr[row * n + t] = phr;
-    outi[row * n + t] = phi_;
+    if (a1) {
+      outr[row * n + t1] = p1r;
+      outi[row * n + t1] = p1i;
+    }
   }
 }
 
-// Dynamic shared memory of one block: a staged source box (x, y, q_r,
-// q_i, rank) and one multipole row.
-static size_t smem_bytes(size_t elem, int n, int P) {
-  return elem * (size_t)(4 * n + 2 * P) + sizeof(int32_t) * (size_t)n;
+// Warps (target leaves) per block: WARPS, or fewer where their staging
+// regions would not fit in a block's shared memory.
+static int warps_per_block(size_t elem, int n, int P, int S, int Sm) {
+  const size_t per = warp_bytes(elem, n, P, S, Sm);
+  const size_t fit = SMEM_OPTIN / per;
+  return fit < (size_t)WARPS ? (int)fit : WARPS;
+}
+
+// Dynamic shared memory of one block: each warp's region.
+static size_t smem_bytes(size_t elem, int n, int P, int S, int Sm) {
+  return warps_per_block(elem, n, P, S, Sm) * warp_bytes(elem, n, P, S, Sm);
+}
+
+template <typename T, bool LOG, int NF>
+static int launch_one(dim3 grid, int wpb, size_t smem, cudaStream_t s,
+                      const void* p2p, int S, const void* m2p, int Sm,
+                      const void* zr, const void* zi, const void* qr,
+                      const void* qi, const void* rk, const void* tr,
+                      const void* ti, const void* br, const void* bi,
+                      const void* ar, const void* ai, const void* mcr,
+                      const void* mci, const void* mrho, int nb, int n,
+                      int P, void* outr, void* outi) {
+  const int rc = allow_smem(eval_fused_kernel<T, LOG, NF>, smem);
+  if (rc) return rc;
+  eval_fused_kernel<T, LOG, NF><<<grid, wpb * 32, smem, s>>>(
+      (const int32_t*)p2p, S, (const int32_t*)m2p, Sm, (const T*)zr,
+      (const T*)zi, (const T*)qr, (const T*)qi, (const int32_t*)rk,
+      (const T*)tr, (const T*)ti, (const T*)br, (const T*)bi, (const T*)ar,
+      (const T*)ai, (const T*)mcr, (const T*)mci, (const T*)mrho, nb, n, P,
+      (T*)outr, (T*)outi);
+  return launch_status();
 }
 
 template <typename T>
@@ -147,23 +388,21 @@ static int launch(const void* p2p, int S, const void* m2p, int Sm,
                   const void* mci, const void* mrho, int B, int nb, int n,
                   int P, int log_kernel, void* outr, void* outi,
                   void* stream) {
-  const int nt = ((n + 31) / 32) * 32;
-  const size_t smem = smem_bytes(sizeof(T), n, P);
-  if (nt > 1024 || smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(nb, B);
+  const int wpb = warps_per_block(sizeof(T), n, P, S, Sm);
+  if (n < 1 || P < 2 || S < 1 || wpb < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(sizeof(T), n, P, S, Sm);
+  const dim3 grid((nb + wpb - 1) / wpb, B);
   cudaStream_t s = (cudaStream_t)stream;
 #define EVAL_ARGS                                                             \
-  (const int32_t*)p2p, S, (const int32_t*)m2p, Sm, (const T*)zr,              \
-      (const T*)zi, (const T*)qr, (const T*)qi, (const int32_t*)rk,           \
-      (const T*)tr, (const T*)ti, (const T*)br, (const T*)bi, (const T*)ar,   \
-      (const T*)ai, (const T*)mcr, (const T*)mci, (const T*)mrho, nb, n, P,   \
-      (T*)outr, (T*)outi
-  if (log_kernel)
-    eval_fused_kernel<T, true><<<grid, nt, smem, s>>>(EVAL_ARGS);
-  else
-    eval_fused_kernel<T, false><<<grid, nt, smem, s>>>(EVAL_ARGS);
+  grid, wpb, smem, s, p2p, S, m2p, Sm, zr, zi, qr, qi, rk, tr, ti, br, bi, ar, ai, \
+      mcr, mci, mrho, nb, n, P, outr, outi
+  if (n == NFIX)
+    return log_kernel ? launch_one<T, true, NFIX>(EVAL_ARGS)
+                      : launch_one<T, false, NFIX>(EVAL_ARGS);
+  return log_kernel ? launch_one<T, true, 0>(EVAL_ARGS)
+                    : launch_one<T, false, 0>(EVAL_ARGS);
 #undef EVAL_ARGS
-  return launch_status();
 }
 
 #define EVAL_ENTRY(NAME, T)                                                   \
@@ -182,7 +421,8 @@ static int launch(const void* p2p, int S, const void* m2p, int Sm,
 EVAL_ENTRY(eval_fused_f32, float)
 EVAL_ENTRY(eval_fused_f64, double)
 
-// Dynamic shared memory per block (bytes) of a launch at these sizes.
-extern "C" int repro_smem_bytes(int elem, int n, int P) {
-  return static_cast<int>(smem_bytes(elem, n, P));
+// Dynamic shared memory per block (bytes) of a launch at these sizes
+// (S: the width of the p2p and of the m2p lists).
+extern "C" int repro_smem_bytes(int elem, int n, int P, int S) {
+  return static_cast<int>(smem_bytes(elem, n, P, S, S));
 }

@@ -80,7 +80,8 @@ L2P_ENTRY(l2p_f32, float)
 L2P_ENTRY(l2p_f64, double)
 
 // Dynamic shared memory per block (bytes) of a launch at these sizes.
-extern "C" int repro_smem_bytes(int elem, int n, int P) {
+extern "C" int repro_smem_bytes(int elem, int n, int P, int S) {
+  (void)S;
   (void)n;
   return static_cast<int>(smem_bytes(elem, P));
 }

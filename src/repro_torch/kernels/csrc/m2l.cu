@@ -3,162 +3,307 @@
 //
 // Replaces the Pallas kernel repro/kernels/m2l/m2l.py (_m2l_pallas,
 // pallas_call at :149; wrapper m2l/ops.py:m2l_fused_apply). For every
-// target box of the flattened all-levels axis (sum 4^l boxes) and every
-// slot w of its weak list:
+// target box t of the flattened all-levels axis (sum 4^l boxes) and every
+// occupied slot of its weak list, with source box s and r = c_t - c_s:
 //
 //   a^_k  = a_k (rho_s/r)^k                      (k >= 1; a^_0 = a_0)
 //   b^_l  = sum_k H[l][k] a^_k,   H[l][k] = C(l+k-1, k-1) ...
 //   out_l += b^_l (-rho_t/r)^l   (+ a_0 log r on l = 0 for the log kernel)
 //
-// Bound on the H100: operations. Per list entry the (p+1)^2 real-by-
-// complex matrix-vector product is 4 (p+1)^2 flops (1.3 kflop at p = 17)
-// and the two power recurrences about 12 p more, against ~0.3 KB of
-// operands (a multipole row, four ratio values), so the work sits well
-// above the bytes line in f64 and near it in f32.
+// Bound on the H100: operations. Per occupied entry the (p+1)^2
+// real-by-complex product is 4 (p+1)^2 flops (1.3 kflop at p = 17)
+// against ~0.3 KB of operands (a multipole row, two centers, a radius).
 //
-// Design: one warp owns one target box, lanes own output indices l (two
-// per lane for p+1 > 32). H (p+1)^2 lives in shared memory for the
-// whole block; per weak slot the warp stages the pre-scaled source row
-// a^ in shared memory, each lane takes the dot product of its row of H
-// with it, post-scales with its own power recurrence and accumulates in
-// registers. The weak loop runs over all slots of the box (no grid-step
-// carry as on the TPU); masked slots are skipped. Every box stores its
-// (p+1) outputs once: no atomics, results are bitwise reproducible.
+// Design:
+// 1. A block owns a tile of TB = 128 / (p+1) target boxes (7 at p = 17).
+//    Each warp loads whole weak rows, coalesced, and compacts the
+//    occupied slots in slot order with a ballot: no per-slot list load.
+// 2. Rounds of CEB entries per box: the block computes r, rho_s/r and
+//    -rho_t/r from the (B, NB) centers and radii (no per-slot ratio
+//    planes in device memory), and each entry's p+1 powers of both
+//    ratios once, not once per output (one thread the pre-scaled row a^,
+//    one thread the post-scale powers), into shared memory.
+// 3. The product: thread (box, l) keeps row l of H in registers (the
+//    p = 17 instantiation; a generic one reads H from shared memory and
+//    takes twice as long at p = 17, scripts/time_kernels.py) and
+//    streams its box's pre-scaled rows, whose 16-byte loads every thread
+//    of the box shares (a broadcast): an (entries x P) tile times H^T,
+//    each thread one output column of its box. All 32 lanes of every
+//    warp but the last two work. FP64 tensor cores (mma m8n8k4) are not
+//    used: P = 18 pads to 20 x 24 there (a third of the work padding),
+//    and each box's few dozen entries would still need a reduction
+//    across fragment rows; f32 stays on FFMA (TF32 would break the f32
+//    accuracy bound).
+// 4. Post-scaling and reduction in registers: thread (box, l) adds each
+//    entry's b^_l (-rho_t/r)^l in slot order and stores out_l once. The
+//    order of every sum is fixed, there are no atomics: results are
+//    bitwise reproducible and a problem's row of a batch equals its own
+//    apply. Empty boxes, the root-only case and the ragged last tile
+//    store 0.
 #include "common.cuh"
 
-constexpr int WARPS = 4;
-constexpr int MAX_PER_LANE = 2;   // p + 1 <= 64
+constexpr int THREADS = 128;
+constexpr int CEB = 8;         // entries of each box staged per round
+constexpr int PFIX = 18;       // p = 17, the default config
+constexpr int PMAX = 64;       // TB >= 2
 
-template <typename T, bool LOG>
-__global__ void m2l_kernel(const int32_t* __restrict__ weak,
-                           const T* __restrict__ ar, const T* __restrict__ ai,
-                           const T* __restrict__ prer,
-                           const T* __restrict__ prei,
-                           const T* __restrict__ postr,
-                           const T* __restrict__ posti,
-                           const T* __restrict__ logr,
-                           const T* __restrict__ logi,
-                           const T* __restrict__ h, int NB, int W, int P,
-                           T* __restrict__ outr, T* __restrict__ outi) {
+template <typename T> struct alignas(2 * sizeof(T)) Cx { T r, i; };
+
+// Shared-memory geometry of one block (host and device agree on it).
+struct Geo {
+  int TB, RS, BS;
+  __host__ __device__ Geo(int P) {
+    TB = THREADS / P;
+    RS = P + (P & 1);          // complex row stride: even, so f32 rows are
+                               // 16-byte aligned
+    BS = CEB * RS + 2;         // box stride: shifts boxes by 16 bytes
+  }                            // of banks (no conflicts between boxes)
+};
+
+static size_t smem_bytes(size_t elem, int P, int W) {
+  const Geo g(P);
+  return 2 * elem * (size_t)(2 * g.TB * g.BS + g.TB * CEB)   // a^, powers, log
+         + elem * (size_t)(P * P)                            // H (generic)
+         + sizeof(int32_t) * (size_t)(g.TB * W + g.TB);      // lists, counts
+}
+
+// Complex c = a (x + i y) from real (a_r, a_i) and (x, y).
+template <typename T>
+__device__ __forceinline__ Cx<T> cmul(T ar, T ai, T x, T y) {
+  return Cx<T>{ar * x - ai * y, ar * y + ai * x};
+}
+
+// Ratio sc / r for r = (rr, ri): rounded exactly as the plain version
+// computes it (no contraction), so both scale by the same numbers.
+template <typename T>
+__device__ __forceinline__ void ratio(T sc, T rr, T ri, T& wr, T& wi) {
+  using R = Rn<T>;
+  const T k = R::div(T(1), R::add(R::mul(rr, rr), R::mul(ri, ri)));
+  wr = R::mul(R::mul(sc, rr), k);
+  wi = R::mul(R::mul(-sc, ri), k);
+}
+
+// b^ = sum_k h[k] x[k] over one pre-scaled row (two interleaved partial
+// sums, each in k order).
+template <typename T, int PF>
+__device__ __forceinline__ void row_dot(const Cx<T>* x, const T* hreg,
+                                        const T* hsm, int P, T& br, T& bi) {
+  T r0 = T(0), i0 = T(0), r1 = T(0), i1 = T(0);
+  if constexpr (PF > 0) {
+#pragma unroll
+    for (int k = 0; k + 1 < PF; k += 2) {
+      T xr0, xi0, xr1, xi1;
+      if constexpr (sizeof(T) == 4) {          // two complex in one load
+        const float4 v = *reinterpret_cast<const float4*>(x + k);
+        xr0 = v.x; xi0 = v.y; xr1 = v.z; xi1 = v.w;
+      } else {
+        const Cx<T> a = x[k], c = x[k + 1];
+        xr0 = a.r; xi0 = a.i; xr1 = c.r; xi1 = c.i;
+      }
+      r0 = fma(hreg[k], xr0, r0);
+      i0 = fma(hreg[k], xi0, i0);
+      r1 = fma(hreg[k + 1], xr1, r1);
+      i1 = fma(hreg[k + 1], xi1, i1);
+    }
+    if constexpr (PF & 1) {
+      const Cx<T> a = x[PF - 1];
+      r0 = fma(hreg[PF - 1], a.r, r0);
+      i0 = fma(hreg[PF - 1], a.i, i0);
+    }
+  } else {
+    (void)hreg;
+    int k = 0;
+    for (; k + 1 < P; k += 2) {
+      const Cx<T> a = x[k], c = x[k + 1];
+      r0 = fma(hsm[k], a.r, r0);
+      i0 = fma(hsm[k], a.i, i0);
+      r1 = fma(hsm[k + 1], c.r, r1);
+      i1 = fma(hsm[k + 1], c.i, i1);
+    }
+    if (k < P) {
+      const Cx<T> a = x[k];
+      r0 = fma(hsm[k], a.r, r0);
+      i0 = fma(hsm[k], a.i, i0);
+    }
+  }
+  br = r0 + r1;
+  bi = i0 + i1;
+}
+
+template <typename T, bool LOG, int PF>
+__global__ void __launch_bounds__(THREADS) m2l_kernel(
+    const int32_t* __restrict__ weak, const T* __restrict__ ar,
+    const T* __restrict__ ai, const T* __restrict__ cr,
+    const T* __restrict__ ci, const T* __restrict__ rho,
+    const T* __restrict__ h, int NB, int W, int P_, T* __restrict__ outr,
+    T* __restrict__ outi) {
+  const int P = PF > 0 ? PF : P_;
+  const Geo g(P);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* sh = reinterpret_cast<T*>(smem_raw);          // H, P*P
-  T* stage = sh + P * P;                           // per warp: re[P], im[P]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = threadIdx.x; i < P * P; i += blockDim.x) sh[i] = h[i];
+  Cx<T>* s_pre = reinterpret_cast<Cx<T>*>(smem_raw);   // a^ rows
+  Cx<T>* s_post = s_pre + g.TB * g.BS;                  // (-rho_t/r)^l
+  Cx<T>* s_log = s_post + g.TB * g.BS;                  // a_0 log r
+  T* s_h = reinterpret_cast<T*>(s_log + g.TB * CEB);
+  int32_t* s_src = reinterpret_cast<int32_t*>(s_h + P * P);
+  int32_t* s_cnt = s_src + g.TB * W;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long b = blockIdx.y;
+  const int box0 = blockIdx.x * g.TB;
+  const int nbox = min(g.TB, NB - box0);
+
+  // 1. Compact each box's occupied weak slots, in slot order.
+  for (int bb = warp; bb < g.TB; bb += THREADS / 32) {
+    int cnt = 0;
+    if (bb < nbox) {
+      const int32_t* wrow = weak + (b * NB + box0 + bb) * (long long)W;
+      for (int s0 = 0; s0 < W; s0 += 32) {
+        const int src = s0 + lane < W ? wrow[s0 + lane] : -1;
+        const unsigned m = __ballot_sync(0xffffffffu, src >= 0);
+        if (src >= 0)
+          s_src[bb * W + cnt + __popc(m & ((1u << lane) - 1u))] = src;
+        cnt += __popc(m);
+      }
+    }
+    if (lane == 0) s_cnt[bb] = cnt;
+  }
+  if (PF == 0)
+    for (int i = tid; i < P * P; i += THREADS) s_h[i] = h[i];
   __syncthreads();
 
-  const long long box = (long long)blockIdx.x * WARPS + warp;
-  if (box >= NB) return;                           // no block barrier below
-  const long long b = blockIdx.y;
-  const long long row = b * NB + box;
-  T* sar = stage + warp * 2 * P;
-  T* sai = sar + P;
+  int most = 0;
+  for (int bb = 0; bb < nbox; ++bb) most = max(most, s_cnt[bb]);
+  const int rounds = (most + CEB - 1) / CEB;
 
-  T accr[MAX_PER_LANE], acci[MAX_PER_LANE];
+  // Output role: thread (obox, l) owns out_l of box obox.
+  const int obox = tid / P, l = tid - obox * P;
+  const bool owner = obox < nbox;
+  const int ocnt = owner ? s_cnt[obox] : 0;
+  T hreg[PF > 0 ? PF : 1];
+  if constexpr (PF > 0) {
 #pragma unroll
-  for (int t = 0; t < MAX_PER_LANE; ++t) accr[t] = acci[t] = T(0);
-
-  for (int w = 0; w < W; ++w) {
-    const long long slot = row * W + w;
-    const int src = weak[slot];
-    if (src < 0) continue;                         // warp-uniform
-    const T pr = prer[slot], pi = prei[slot];
-    const T qr = postr[slot], qi = posti[slot];
-    const T* a_r = ar + (b * NB + src) * P;
-    const T* a_i = ai + (b * NB + src) * P;
-    // pre-scale: lane k holds a_k (rho_s/r)^k
-    for (int k = lane; k < P; k += 32) {
-      T wr = T(1), wi = T(0);
-      for (int j = 0; j < k; ++j) {
-        const T nr = wr * pr - wi * pi;
-        wi = wr * pi + wi * pr;
-        wr = nr;
-      }
-      const T xr = a_r[k], xi = a_i[k];
-      sar[k] = xr * wr - xi * wi;
-      sai[k] = xr * wi + xi * wr;
-    }
-    __syncwarp();
-#pragma unroll
-    for (int t = 0; t < MAX_PER_LANE; ++t) {
-      const int l = lane + 32 * t;
-      if (l < P) {
-        const T* hl = sh + l * P;
-        T bhr = T(0), bhi = T(0);
-        for (int k = 0; k < P; ++k) {
-          bhr += hl[k] * sar[k];
-          bhi += hl[k] * sai[k];
-        }
-        T wr = T(1), wi = T(0);                    // (-rho_t/r)^l
-        for (int j = 0; j < l; ++j) {
-          const T nr = wr * qr - wi * qi;
-          wi = wr * qi + wi * qr;
-          wr = nr;
-        }
-        accr[t] += bhr * wr - bhi * wi;
-        acci[t] += bhr * wi + bhi * wr;
-        if (LOG && l == 0) {                       // b_0 += a_0 log r
-          const T a0r = a_r[0], a0i = a_i[0];
-          const T lr = logr[slot], li = logi[slot];
-          accr[t] += a0r * lr - a0i * li;
-          acci[t] += a0r * li + a0i * lr;
-        }
-      }
-    }
-    __syncwarp();
+    for (int k = 0; k < PF; ++k) hreg[k] = owner ? h[l * PF + k] : T(0);
   }
-#pragma unroll
-  for (int t = 0; t < MAX_PER_LANE; ++t) {
-    const int l = lane + 32 * t;
-    if (l < P) {
-      outr[row * P + l] = accr[t];
-      outi[row * P + l] = acci[t];
+  T accr = T(0), acci = T(0);
+
+  for (int r = 0; r < rounds; ++r) {
+    const int e0 = r * CEB;
+    // 2. Stage: per entry the pre-scaled row and the post-scale powers.
+    for (int u = tid; u < 2 * g.TB * CEB; u += THREADS) {
+      const bool post = u >= g.TB * CEB;
+      const int v = post ? u - g.TB * CEB : u;
+      const int bb = v / CEB, jj = v - bb * CEB;
+      if (bb >= nbox || e0 + jj >= s_cnt[bb]) continue;
+      const long long trow = b * NB + box0 + bb;
+      const long long srow = b * NB + s_src[bb * W + e0 + jj];
+      const T rr = Rn<T>::sub(cr[trow], cr[srow]);   // r = c_t - c_s
+      const T ri = Rn<T>::sub(ci[trow], ci[srow]);
+      T wr, wi;
+      ratio(post ? -rho[trow] : rho[srow], rr, ri, wr, wi);
+      Cx<T>* dst = (post ? s_post : s_pre) + bb * g.BS + jj * g.RS;
+      T pr = T(1), pi = T(0);
+      if (post) {
+#pragma unroll 6
+        for (int k = 0; k < P; ++k) {
+          dst[k] = Cx<T>{pr, pi};
+          const Cx<T> nx = cmul(pr, pi, wr, wi);
+          pr = nx.r;
+          pi = nx.i;
+        }
+      } else {
+        const T* a_r = ar + srow * P;
+        const T* a_i = ai + srow * P;
+#pragma unroll 6
+        for (int k = 0; k < P; ++k) {
+          dst[k] = cmul(a_r[k], a_i[k], pr, pi);
+          const Cx<T> nx = cmul(pr, pi, wr, wi);
+          pr = nx.r;
+          pi = nx.i;
+        }
+        if (LOG) {                             // a_0 log r
+          const T lr = T(0.5) * log(rr * rr + ri * ri);
+          const T li = atan2(ri, rr);
+          s_log[bb * CEB + jj] = cmul(a_r[0], a_i[0], lr, li);
+        }
+      }
     }
+    __syncthreads();
+    // 3.-4. Product, post-scale and slot-order sum of this round.
+    if (owner) {
+      const int ne = min(CEB, ocnt - e0);
+      const Cx<T>* pre = s_pre + obox * g.BS;
+      const Cx<T>* pst = s_post + obox * g.BS;
+      for (int jj = 0; jj < ne; ++jj) {
+        T br, bi;
+        row_dot<T, PF>(pre + jj * g.RS, PF > 0 ? hreg : nullptr,
+                       s_h + l * P, P, br, bi);
+        const Cx<T> w = pst[jj * g.RS + l];
+        accr += br * w.r - bi * w.i;
+        acci += br * w.i + bi * w.r;
+        if (LOG && l == 0) {
+          const Cx<T> lg = s_log[obox * CEB + jj];
+          accr += lg.r;
+          acci += lg.i;
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (owner) {
+    const long long o = (b * NB + box0 + obox) * P + l;
+    outr[o] = accr;
+    outi[o] = acci;
   }
 }
 
-// Dynamic shared memory of one block: H plus each warp's staged row.
-static size_t smem_bytes(size_t elem, int P) {
-  return elem * (size_t)(P * P + WARPS * 2 * P);
+template <typename T, bool LOG, int PF>
+static int launch_one(dim3 grid, size_t smem, cudaStream_t s,
+                      const void* weak, const void* ar, const void* ai,
+                      const void* cr, const void* ci, const void* rho,
+                      const void* h, int NB, int W, int P, void* outr,
+                      void* outi) {
+  const int rc = allow_smem(m2l_kernel<T, LOG, PF>, smem);
+  if (rc) return rc;
+  m2l_kernel<T, LOG, PF><<<grid, THREADS, smem, s>>>(
+      (const int32_t*)weak, (const T*)ar, (const T*)ai, (const T*)cr,
+      (const T*)ci, (const T*)rho, (const T*)h, NB, W, P, (T*)outr,
+      (T*)outi);
+  return launch_status();
 }
 
 template <typename T>
 static int launch(const void* weak, const void* ar, const void* ai,
-                  const void* prer, const void* prei, const void* postr,
-                  const void* posti, const void* logr, const void* logi,
+                  const void* cr, const void* ci, const void* rho,
                   const void* h, int B, int NB, int W, int P, int log_kernel,
                   void* outr, void* outi, void* stream) {
-  if (P > 32 * MAX_PER_LANE) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((NB + WARPS - 1) / WARPS, B);
-  const size_t smem = smem_bytes(sizeof(T), P);
+  if (P < 1 || P > PMAX || W < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const Geo g(P);
+  const dim3 grid((NB + g.TB - 1) / g.TB, B);
+  const size_t smem = smem_bytes(sizeof(T), P, W);
   cudaStream_t s = (cudaStream_t)stream;
-  if (log_kernel)
-    m2l_kernel<T, true><<<grid, WARPS * 32, smem, s>>>(
-        (const int32_t*)weak, (const T*)ar, (const T*)ai, (const T*)prer,
-        (const T*)prei, (const T*)postr, (const T*)posti, (const T*)logr,
-        (const T*)logi, (const T*)h, NB, W, P, (T*)outr, (T*)outi);
-  else
-    m2l_kernel<T, false><<<grid, WARPS * 32, smem, s>>>(
-        (const int32_t*)weak, (const T*)ar, (const T*)ai, (const T*)prer,
-        (const T*)prei, (const T*)postr, (const T*)posti, nullptr, nullptr,
-        (const T*)h, NB, W, P, (T*)outr, (T*)outi);
-  return launch_status();
+#define M2L_ARGS grid, smem, s, weak, ar, ai, cr, ci, rho, h, NB, W, P, outr, outi
+  if (P == PFIX)
+    return log_kernel ? launch_one<T, true, PFIX>(M2L_ARGS)
+                      : launch_one<T, false, PFIX>(M2L_ARGS);
+  return log_kernel ? launch_one<T, true, 0>(M2L_ARGS)
+                    : launch_one<T, false, 0>(M2L_ARGS);
+#undef M2L_ARGS
 }
 
 #define M2L_ENTRY(NAME, T)                                                   \
   extern "C" int NAME(const void* weak, const void* ar, const void* ai,      \
-                      const void* prer, const void* prei, const void* postr, \
-                      const void* posti, const void* logr, const void* logi, \
+                      const void* cr, const void* ci, const void* rho,       \
                       const void* h, int B, int NB, int W, int P,            \
                       int log_kernel, void* outr, void* outi, void* stream) { \
-    return launch<T>(weak, ar, ai, prer, prei, postr, posti, logr, logi, h,  \
-                     B, NB, W, P, log_kernel, outr, outi, stream);           \
+    return launch<T>(weak, ar, ai, cr, ci, rho, h, B, NB, W, P, log_kernel,  \
+                     outr, outi, stream);                                    \
   }
 M2L_ENTRY(m2l_f32, float)
 M2L_ENTRY(m2l_f64, double)
 
-// Dynamic shared memory per block (bytes) of a launch at these sizes.
-extern "C" int repro_smem_bytes(int elem, int n, int P) {
+// Dynamic shared memory per block (bytes) of a launch at these sizes
+// (S: the weak-list width).
+extern "C" int repro_smem_bytes(int elem, int n, int P, int S) {
   (void)n;
-  return static_cast<int>(smem_bytes(elem, P));
+  return static_cast<int>(smem_bytes(elem, P, S));
 }

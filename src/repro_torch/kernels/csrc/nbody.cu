@@ -103,7 +103,8 @@ NBODY_ENTRY(nbody_f32, float)
 NBODY_ENTRY(nbody_f64, double)
 
 // Dynamic shared memory per block (bytes) of a launch at these sizes.
-extern "C" int repro_smem_bytes(int elem, int n, int P) {
+extern "C" int repro_smem_bytes(int elem, int n, int P, int S) {
+  (void)S;
   (void)n;
   (void)P;
   return static_cast<int>(smem_bytes(elem));

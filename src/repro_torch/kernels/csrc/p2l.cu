@@ -164,6 +164,7 @@ P2L_ENTRY(p2l_f32, float)
 P2L_ENTRY(p2l_f64, double)
 
 // Dynamic shared memory per block (bytes) of a launch at these sizes.
-extern "C" int repro_smem_bytes(int elem, int n, int P) {
+extern "C" int repro_smem_bytes(int elem, int n, int P, int S) {
+  (void)S;
   return static_cast<int>(smem_bytes(elem, n, P));
 }

@@ -14,8 +14,7 @@
 // N = 2^20 the occupied list entries give ~8e8 pairs against ~1e7
 // bytes of particle planes.
 //
-// Design: the P2P half of eval_fused.cu without its L2P seed and M2P
-// region. One block owns one target leaf, one thread per target slot
+// Design: one block owns one target leaf, one thread per target slot
 // (n_max = 64 at the paper's N_d); for each list slot the block stages
 // the source leaf's x, y, q (re, im) and ranks in shared memory (the
 // TPU kernel's scalar-prefetch-indexed source DMA) and every thread sums
@@ -23,6 +22,54 @@
 // accumulator. Masked slots (-1) are skipped, not read as a dummy row.
 // Phi is written once; no atomics: results are bitwise reproducible.
 #include "common.cuh"
+
+// Stage one source leaf (x, y, q_r, q_i and global ranks, n slots) of
+// problem row `sb = (b * nb + src) * n` and rank row `rb = src * n` into
+// shared memory, the block's threads striding over the slots.
+template <typename T>
+__device__ __forceinline__ void stage_source_leaf(
+    const T* __restrict__ zr, const T* __restrict__ zi,
+    const T* __restrict__ qr, const T* __restrict__ qi,
+    const int32_t* __restrict__ rk, long long sb, long long rb, int n,
+    T* s_x, T* s_y, T* s_qr, T* s_qi, int32_t* s_rk) {
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    s_x[j] = zr[sb + j];
+    s_y[j] = zi[sb + j];
+    s_qr[j] = qr[sb + j];
+    s_qi[j] = qi[sb + j];
+    s_rk[j] = rk[rb + j];
+  }
+}
+
+// The near-field sum of one staged source leaf at one target (tzr, tzi)
+// of global rank trk: sum over the n slots of G(z, x), skipping padded
+// slots (rank -1) and the target itself (equal rank) -- self-exclusion
+// by particle identity, so distinct coincident particles keep their
+// (singular) mutual term. Harmonic G = q/(x - z), log G = q log(z - x).
+template <typename T, bool LOG>
+__device__ __forceinline__ void p2p_leaf_sum(
+    const T* s_x, const T* s_y, const T* s_qr, const T* s_qi,
+    const int32_t* s_rk, int n, T tzr, T tzi, int trk, T& sr, T& si) {
+  sr = T(0);
+  si = T(0);
+  for (int j = 0; j < n; ++j) {
+    const T dx = s_x[j] - tzr, dy = s_y[j] - tzi;   // z_src - z_tgt
+    const T d2 = dx * dx + dy * dy;
+    const int srk = s_rk[j];
+    const bool ok = srk >= 0 && srk != trk;
+    const T cq = s_qr[j], sq = s_qi[j];
+    if (LOG) {
+      const T lr = ok ? T(0.5) * log(d2) : T(0);
+      const T li = ok ? atan2(-dy, -dx) : T(0);
+      sr += cq * lr - sq * li;
+      si += cq * li + sq * lr;
+    } else {
+      const T inv = ok ? T(1) / d2 : T(0);          // q/(dx + i dy)
+      sr += (cq * dx + sq * dy) * inv;
+      si += (sq * dx - cq * dy) * inv;
+    }
+  }
+}
 
 template <typename T, bool LOG>
 __global__ void p2p_kernel(const int32_t* __restrict__ lists, int S,
@@ -105,7 +152,8 @@ P2P_ENTRY(p2p_f32, float)
 P2P_ENTRY(p2p_f64, double)
 
 // Dynamic shared memory per block (bytes) of a launch at these sizes.
-extern "C" int repro_smem_bytes(int elem, int n, int P) {
+extern "C" int repro_smem_bytes(int elem, int n, int P, int S) {
+  (void)S;
   (void)P;
   return static_cast<int>(smem_bytes(elem, n));
 }

@@ -8,13 +8,16 @@ planes with a leading problem axis B, over a level-agnostic box axis NB
   weak        (B, NB, W) int32 weak lists (-1 masked), already offset
               onto the flat box axis
   ar, ai      (B, NB, P) radius-normalized multipoles, P = p + 1
-  prer/prei   (B, NB, W) per-slot rho_s / r
-  postr/posti (B, NB, W) per-slot -rho_t / r
-  logr/logi   (B, NB, W) per-slot log r (log kernel only)
+  cr, ci      (B, NB) box centers
+  rho         (B, NB) effective box radii
   h           (P, P) the constant Hankel matrix H[l, k]
+  kernel      "harmonic" or "log" (adds a_0 log r to l = 0)
 
 and the result is (outr, outi), (B, NB, P): the summed normalized local
-contributions per target box.
+contributions per target box. Both versions compute each occupied slot's
+ratios from the centers and radii — r = c_t - c_s, rho_s / r and
+-rho_t / r — with the same roundings, then the power recurrences, the
+product with H and the post-scale.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 from ..build import CudaLibrary, I, P, check_tensors, on_cpu
 
 LIB = CudaLibrary("m2l", {
-    f"m2l_{s}": [P] * 10 + [I, I, I, I, I, P, P, P] for s in ("f32", "f64")})
+    f"m2l_{s}": [P] * 7 + [I] * 5 + [P, P, P] for s in ("f32", "f64")})
 
 #: Weak-list slots per step of the plain version (bounds its working set).
 PLAIN_CHUNK = 16
@@ -36,8 +39,12 @@ def _pows(x: torch.Tensor, n: int) -> torch.Tensor:
     return torch.stack(out, dim=-1)
 
 
-def m2l_plain(weak, ar, ai, prer, prei, postr, posti, h, logr=None,
-              logi=None):
+def _ratio(sc, rr, ri, k):
+    """sc / r for r = rr + i ri, k = 1 / |r|^2 (the kernel's roundings)."""
+    return torch.complex(sc * rr * k, -sc * ri * k)
+
+
+def m2l_plain(weak, ar, ai, cr, ci, rho, h, kernel: str = "harmonic"):
     """Plain torch version of the kernel (same operands and result)."""
     B, NB, W = weak.shape
     Pn = ar.shape[-1]
@@ -49,34 +56,34 @@ def m2l_plain(weak, ar, ai, prer, prei, postr, posti, h, logr=None,
     for s in range(0, W, PLAIN_CHUNK):
         wk = weak[..., s:s + PLAIN_CHUNK].long()
         mask = wk >= 0
-        a = a_all[bidx, torch.where(mask, wk, torch.zeros_like(wk))]
-        sl = slice(s, s + PLAIN_CHUNK)
-        pre = _pows(torch.complex(prer[..., sl], prei[..., sl]), Pn)
-        post = _pows(torch.complex(postr[..., sl], posti[..., sl]), Pn)
-        b_hat = (a * pre) @ ht
-        contrib = b_hat * post
-        if logr is not None:
-            lg = torch.complex(logr[..., sl], logi[..., sl])
+        src = torch.where(mask, wk, torch.zeros_like(wk))
+        a = a_all[bidx, src]
+        rr = cr[..., None] - cr[bidx, src]            # r = c_t - c_s
+        ri = ci[..., None] - ci[bidx, src]
+        k = 1 / (rr * rr + ri * ri)                   # masked: any value
+        pre = _pows(_ratio(rho[bidx, src], rr, ri, k), Pn)
+        post = _pows(_ratio(-rho[..., None], rr, ri, k), Pn)
+        contrib = ((a * pre) @ ht) * post
+        if kernel == "log":
+            lg = torch.complex(0.5 * torch.log(rr * rr + ri * ri),
+                               torch.atan2(ri, rr))
             contrib[..., 0] = contrib[..., 0] + a[..., 0] * lg
         out = out + torch.where(mask[..., None], contrib, zero).sum(dim=2)
     return out.real.contiguous(), out.imag.contiguous()
 
 
-def m2l_cuda(weak, ar, ai, prer, prei, postr, posti, h, logr=None,
-             logi=None):
+def m2l_cuda(weak, ar, ai, cr, ci, rho, h, kernel: str = "harmonic"):
     """The kernel on CUDA tensors, the plain version on CPU tensors."""
     if on_cpu(weak):
-        return m2l_plain(weak, ar, ai, prer, prei, postr, posti, h, logr,
-                         logi)
+        return m2l_plain(weak, ar, ai, cr, ci, rho, h, kernel)
     B, NB, W = weak.shape
     Pn = ar.shape[-1]
     dt = ar.dtype
     check_tensors(weak, dtype=torch.int32)
-    check_tensors(ar, ai, prer, prei, postr, posti, h, logr, logi, dtype=dt,
-                  device=weak.device)
+    check_tensors(ar, ai, cr, ci, rho, h, dtype=dt, device=weak.device)
     outr = torch.empty((B, NB, Pn), dtype=dt, device=weak.device)
     outi = torch.empty_like(outr)
     sfx = "f64" if dt == torch.float64 else "f32"
-    LIB.launch(f"m2l_{sfx}", weak, ar, ai, prer, prei, postr, posti, logr,
-               logi, h, B, NB, W, Pn, int(logr is not None), outr, outi)
+    LIB.launch(f"m2l_{sfx}", weak, ar, ai, cr, ci, rho, h, B, NB, W, Pn,
+               int(kernel == "log"), outr, outi)
     return outr, outi

@@ -14,7 +14,6 @@ import torch
 
 from ...core import expansions as E
 from ...core.config import FmmConfig
-from ...core.fmm import rows
 from .m2l import m2l_cuda
 
 
@@ -30,30 +29,18 @@ def hankel(cfg: FmmConfig, device) -> torch.Tensor:
 
 
 def m2l_planes(mult, weak, centers, cfg: FmmConfig, rho):
-    """Stage the kernel operands over one flat box axis: (B, NB, p+1)
-    multipoles, (B, NB, W) weak lists into that axis, (B, NB) centers and
-    radii. Returns the operands of ``m2l_cuda``: the multipole planes,
-    the per-slot ratio planes rho_s/r and -rho_t/r (plus log r for the
-    log kernel) and the Hankel matrix."""
+    """The kernel operands over one flat box axis, from (B, NB, p+1)
+    multipoles, (B, NB, W) weak lists into that axis and (B, NB) centers
+    and radii: the operands of ``m2l_cuda`` (the kernel computes each
+    slot's ratios itself)."""
     rdt = cfg.torch_real
-    mask = weak >= 0
-    src = torch.where(mask, weak, torch.zeros_like(weak)).long()
-    one = torch.ones((), dtype=centers.dtype, device=centers.device)
-    zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
-    r = torch.where(mask, centers[..., None] - rows(centers, src), one)
-    pre = torch.where(mask, rows(rho, src), zero) / r     # rho_s / r
-    post = -rho[..., None] / r                            # -rho_t / r
 
     def plane(x):
         return x.to(rdt).contiguous()
 
-    logs = (None, None)
-    if cfg.kernel == "log":
-        lg = torch.log(r)                                 # masked slots: 0
-        logs = (plane(lg.real), plane(lg.imag))
     return (weak.contiguous(), plane(mult.real), plane(mult.imag),
-            plane(pre.real), plane(pre.imag), plane(post.real),
-            plane(post.imag), hankel(cfg, weak.device), *logs)
+            plane(centers.real), plane(centers.imag), plane(rho),
+            hankel(cfg, weak.device), cfg.kernel)
 
 
 def m2l_operands(mult, weak, centers, cfg: FmmConfig, rho):

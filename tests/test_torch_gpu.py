@@ -143,3 +143,134 @@ def test_nbody_direct_launches_once_and_excludes_by_position(cuda):
     assert torch.isfinite(phi).all()
     from repro_torch.core.direct import direct_potential
     assert _rel(phi, direct_potential(z, z, q)) <= 1e-10
+
+
+def _bits(x):
+    return x.view(torch.int64 if x.element_size() == 8 else torch.int32)
+
+
+def _twice(fn):
+    """Two launches; the second must equal the first bitwise (NaNs
+    included)."""
+    first, second = fn(), fn()
+    torch.cuda.synchronize()
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(first, second))
+    return first
+
+
+def _eval_operands(cfg, cuda, seed=0, edit=None):
+    """The fused evaluation's operands of one uniform problem; ``edit``
+    may change the particles (after the tree is built)."""
+    z, q = particles("uniform", cfg.n, seed, device=cuda)
+    plan = F.fmm_build(z[None], q[None], cfg)
+    if edit is not None:
+        plan = plan._replace(tree=edit(plan.tree))
+    mult = F.upward(plan.tree, cfg)
+    rho = F.effective_radii(plan.tree, cfg)
+    local = F.downward(mult, plan.tree, plan.conn, cfg, rho)
+    return eval_operands(local, mult[-1], plan.tree, plan.conn, cfg)
+
+
+@pytest.mark.parametrize("n,nlevels,dtype,kernel", [
+    (1 << 14, 4, "f64", "harmonic"),      # n_max 64, full leaves: unrolled
+    (1 << 14, 4, "f32", "harmonic"),
+    ((1 << 14) - 200, 4, "f64", "harmonic"),   # n_max 64, padded tails
+    ((1 << 14) - 200, 4, "f64", "log"),
+    (3000, 3, "f64", "harmonic"),         # n_max 47: generic
+    (6000, 3, "f32", "harmonic"),         # n_max 94: generic, two passes
+])
+def test_eval_fused_kernel_instantiations(cuda, n, nlevels, dtype, kernel):
+    cfg = FmmConfig(n=n, nlevels=nlevels, p=17, dtype=dtype, kernel=kernel)
+    args, kw = _eval_operands(cfg, cuda)
+    rk = args[6]
+    assert bool((rk < 0).any()) == (n % 4**nlevels != 0)
+    got = _twice(lambda: eval_fused_cuda(*args, **kw))
+    ref = eval_fused_plain(*args, **kw)
+    tol = 1e-10 if dtype == "f64" else 1e-5
+    assert _rel(torch.complex(*got), torch.complex(*ref)) <= tol
+
+
+def test_eval_fused_keeps_a_coincident_pair_non_finite(cuda):
+    """Two distinct particles of one leaf at one position: both targets'
+    phi non-finite in kernel and plain version alike, every other target
+    finite and equal."""
+    cfg = FmmConfig(n=1 << 12, nlevels=3, p=17, dtype="f64")
+    args, kw = _eval_operands(cfg, cuda, seed=4)
+    zr, zi = args[2], args[3]
+    zr[0, 5, 9], zi[0, 5, 9] = zr[0, 5, 2], zi[0, 5, 2]
+    got = torch.complex(*_twice(lambda: eval_fused_cuda(*args, **kw)))
+    ref = torch.complex(*eval_fused_plain(*args, **kw))
+    bad = ~torch.isfinite(got)
+    assert torch.equal(bad, ~torch.isfinite(ref))
+    assert bad[0, 5, 2] and bad[0, 5, 9] and int(bad.sum()) == 2
+    assert _rel(got[~bad], ref[~bad]) <= 1e-10
+
+
+def test_eval_fused_padded_slot_at_a_target_stays_out(cuda):
+    """A padded source slot sits at z = 0; a particle moved to 0 must not
+    meet it as 0 * inf: the padded slot is never read."""
+    cfg = FmmConfig(n=(1 << 12) - 30, nlevels=3, p=17, dtype="f64")
+    args, kw = _eval_operands(cfg, cuda, seed=5)
+    rk, zr, zi = args[6], args[2], args[3]
+    leaf = int(torch.nonzero((rk < 0).any(-1))[0])
+    assert float(zr[0, leaf, -1]) == 0 and float(zi[0, leaf, -1]) == 0
+    zr[0, leaf, 0], zi[0, leaf, 0] = 0.0, 0.0
+    got = torch.complex(*_twice(lambda: eval_fused_cuda(*args, **kw)))
+    ref = torch.complex(*eval_fused_plain(*args, **kw))
+    valid = rk[None] >= 0
+    assert bool(torch.isfinite(got[valid]).all())
+    assert _rel(got[valid], ref[valid]) <= 1e-10
+
+
+@pytest.mark.parametrize("p,kernel,dtype", [(17, "harmonic", "f64"),
+                                            (17, "log", "f64"),
+                                            (17, "harmonic", "f32"),
+                                            (8, "harmonic", "f64")])
+def test_m2l_kernel_ragged_tile_and_batch(cuda, p, kernel, dtype):
+    """B = 2 on a box axis that the kernel's tiles (128 // (p+1) boxes)
+    do not divide: against the plain version, two launches bitwise equal,
+    each row bitwise equal to a launch of that problem alone, and the
+    boxes with no weak entries (level 1) exactly 0."""
+    cfg = FmmConfig(n=1 << 12, nlevels=4, p=p, dtype=dtype, kernel=kernel)
+    zs, qs = zip(*(particles(d, cfg.n, 6, device=cuda)
+                   for d in ("uniform", "normal")))
+    plan = F.fmm_build(torch.stack(zs), torch.stack(qs), cfg)
+    mult = F.upward(plan.tree, cfg)
+    rho = F.effective_radii(plan.tree, cfg)
+    args, _ = m2l_operands(mult, plan.conn.weak, plan.tree.centers, cfg, rho)
+    weak = args[0]
+    assert weak.shape[:2] == (2, 340) and 340 % (128 // (p + 1)) != 0
+    got = _twice(lambda: m2l_cuda(*args))
+    ref = m2l_plain(*args)
+    tol = 1e-10 if dtype == "f64" else 2e-5
+    assert _rel(torch.complex(*got), torch.complex(*ref)) <= tol
+    empty = ~(weak >= 0).any(-1)
+    assert bool(empty[:, :4].all())
+    assert bool((got[0][empty] == 0).all() and (got[1][empty] == 0).all())
+    for b in range(2):
+        one = [a[b:b + 1].contiguous() if a.dim() >= 2 else a
+               for a in args[:6]] + list(args[6:])
+        alone = m2l_cuda(*one)
+        assert all(torch.equal(x[b], y[0]) for x, y in zip(got, alone))
+
+
+def test_m2l_kernel_weak_rows_with_gaps(cuda):
+    """The occupied slots spread over a twice as wide row, -1 between
+    them: the kernel compacts them back into the same order, so the
+    result is bitwise that of the packed rows."""
+    cfg = FmmConfig(n=1 << 12, nlevels=4, p=17, dtype="f64", kernel="log")
+    z, q = particles("layer", cfg.n, 7, device=cuda)
+    plan = F.fmm_build(z[None], q[None], cfg)
+    mult = F.upward(plan.tree, cfg)
+    rho = F.effective_radii(plan.tree, cfg)
+    args, _ = m2l_operands(mult, plan.conn.weak, plan.tree.centers, cfg, rho)
+    weak = args[0]
+    gapped = torch.full(weak.shape[:2] + (2 * weak.shape[2],), -1,
+                        dtype=weak.dtype, device=cuda)
+    gapped[..., 1::2] = weak
+    spread = (gapped,) + tuple(args[1:])
+    got = _twice(lambda: m2l_cuda(*spread))
+    packed = m2l_cuda(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got, packed))
+    ref = m2l_plain(*spread)
+    assert _rel(torch.complex(*got), torch.complex(*ref)) <= 1e-10
