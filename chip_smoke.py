@@ -149,7 +149,8 @@ def card_line() -> str:
 
 def demangle(sym: str) -> str:
     """``_Z14classify_kernelIfEv...`` -> ``classify_kernel<float>`` (with
-    ``, log`` for the log-kernel instantiation)."""
+    ``, log`` for the log-kernel instantiation and the integer template
+    arguments, e.g. ``p2l_kernel<double, log, 18, 64>``)."""
     m = re.match(r"_Z(\d+)", sym)
     if not m:
         return sym
@@ -158,7 +159,9 @@ def demangle(sym: str) -> str:
     rest = sym[start + int(m.group(1)):]
     t = {"f": "float", "d": "double"}.get(rest[1:2], "?")
     log = ", log" if rest.startswith(("IfLb1E", "IdLb1E")) else ""
-    return f"{name}<{t}{log}>"
+    ints = "".join(f", {v}" for v in
+                   re.findall(r"Li(\d+)E", rest.split("Ev", 1)[0]))
+    return f"{name}<{t}{log}{ints}>"
 
 
 def ptxas_summary(log: str) -> list[str]:
@@ -289,8 +292,11 @@ def work_of(name: str, args, kwargs, dt: str) -> tuple[float, float, float]:
         n = xr.shape[-1]
         entries = int((lists >= 0).sum())
         per_particle = 14 + 8 * (p + 1)
+        # the particle planes of the distinct source leaves the lists
+        # reference, per problem: no other leaf's particles are read
+        sources = sum(int(row[row >= 0].unique().numel()) for row in lists)
         nbytes = (lists.numel() * 4 + 3 * args[1].numel() * sz
-                  + 4 * xr.numel() * sz + 2 * args[1].numel() * (p + 1) * sz)
+                  + 4 * sources * n * sz + 2 * args[1].numel() * (p + 1) * sz)
         return float(entries * n * per_particle), float(nbytes), 0.0
     if name == "p2p":
         lists, zr = args[0], args[1]
@@ -395,6 +401,7 @@ def capture(cfg, z, q, torch):
                 "p2p": int((conn.p2p >= 0).sum()),
                 "p2l": int((conn.p2l >= 0).sum()),
                 "m2p": int((conn.m2p >= 0).sum()),
+                "p2l_leaf_max": int((conn.p2l >= 0).sum(-1).max()),
                 "m2p_leaf_max": int((conn.m2p >= 0).sum(-1).max()),
                 "pairs_nbody": N_SAMPLE * cfg.n - N_SAMPLE}
     return cfg, cap, occupied

@@ -13,13 +13,19 @@ back-to-back launches of the recorded launch on the staged operands
 between one pair of CUDA events (``chip_smoke.time_kernel``). The
 N-body kernel runs at chip_smoke's sampled shape (4096 targets against
 all 2^20 sources). Prints one JSON line per dtype: the label, the dtype,
-the plan's occupied list entries and milliseconds per launch by kernel.
+the plan's occupied list entries, milliseconds per launch by kernel and
+a digest of each kernel's output bytes. The operands come from the seed,
+so two trees whose kernel gives bitwise the same output print the same
+digest; the fused evaluation and L2P take their local-expansion planes
+from the seed too (not from the downward pass, whose M2L and P2L
+roundings would otherwise reach them).
 
 Needs a CUDA card; exits nonzero without one.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import sys
 from pathlib import Path
@@ -27,6 +33,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 import chip_smoke as smoke  # noqa: E402
+
+
+# Positions of the local-expansion planes (real, imaginary) among the
+# operands of the kernels that read them.
+LOCAL_PLANES = {"eval_fused": (9, 10), "l2p": (0, 1)}
+
+
+def output_digest(name: str, kern, args, kwargs, torch) -> str:
+    """The first 16 hex digits of the SHA-256 of the kernel's output
+    bytes, its local-expansion planes (if it reads any) replaced by
+    seeded normal values."""
+    args = list(args)
+    gen = torch.Generator().manual_seed(smoke.SEED)
+    for i in LOCAL_PLANES.get(name, ()):
+        args[i] = torch.randn(args[i].shape, generator=gen,
+                              dtype=args[i].dtype).to(args[i].device)
+    h = hashlib.sha256()
+    for out in kern(args, kwargs):
+        h.update(out.cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def main() -> int:
@@ -54,13 +80,15 @@ def main() -> int:
         z, q = particles("uniform", smoke.N, smoke.SEED)
         cfg, cap, occupied = smoke.capture(
             fmm_config(smoke.N, p=smoke.P_TERMS, dtype=dt), z, q, torch)
-        ms = {}
+        ms, digest = {}, {}
         for name, (kern, _) in smoke.kernel_impls(cfg).items():
             a, k = cap[name]
             call = smoke.staged_launch(name, lambda: kern(a, k))
             ms[name] = smoke.time_kernel(call, args.reps, torch)
+            digest[name] = output_digest(name, kern, a, k, torch)
         print(json.dumps({"label": args.label, "dtype": dt,
-                          "occupied": occupied, "ms": ms}), flush=True)
+                          "occupied": occupied, "ms": ms,
+                          "digest": digest}), flush=True)
         del cap, z, q
         torch.cuda.empty_cache()
     return 0

@@ -21,7 +21,8 @@
 // costs ~8p flops per slot. Device-memory traffic is the particle planes
 // once per list entry, far below the flop time.
 //
-// Design:
+// Design (the P2P stage, items 1-5, is csrc/pairs.cuh:near_sum, which
+// the per-phase P2P kernel p2p.cu runs too):
 // 1. One warp owns one target leaf (four leaves a block); every lane owns
 //    two targets, t and t + 32, so each staged source feeds two pairs
 //    from one shared-memory load. The warp reads its p2p and m2p list
@@ -51,128 +52,22 @@
 //    sums are done. The L2P and M2P Horner loops and the log kernel's
 //    log/atan2 are unchanged. No atomics: results are bitwise
 //    reproducible and a problem's row of a batch equals its own apply.
-#include "common.cuh"
+#include "pairs.cuh"
 
 constexpr int WARPS = 4;       // target leaves per block, one warp each
                                // (fewer where a leaf's ring is large)
-constexpr int NSTAGE = 2;      // source leaves in flight per warp
-constexpr int NFIX = 64;       // n_max at the paper's N_d
-constexpr int GROUP = 64;      // targets per pass of a warp: two per lane
-
-template <typename T> struct alignas(16) Rec { T x, y, qr, qi; };
 
 // The per-warp staging region in reals: the source ring, reused for the
 // m2p rows (2P coefficients, center and radius each).
 static __host__ __device__ int region_elems(int n, int P) {
-  return NSTAGE * n * 4 > 2 * P + 3 ? NSTAGE * n * 4 : 2 * P + 3;
+  return ring_elems(n) > 2 * P + 3 ? ring_elems(n) : 2 * P + 3;
 }
 
 static __host__ __device__ size_t warp_bytes(size_t elem, int n, int P,
                                              int S, int Sm) {
   const size_t b = elem * (size_t)region_elems(n, P)
-                   + sizeof(int32_t) * (size_t)(NSTAGE * n + S + Sm);
+                   + sizeof(int32_t) * (size_t)(ring_ranks(n) + S + Sm);
   return (b + 15) / 16 * 16;
-}
-
-// Asynchronous 4- or 8-byte copies from global to shared memory
-// (cp.async, sm_80 and later), committed and awaited in groups.
-template <typename T>
-__device__ __forceinline__ void cp_async(T* dst, const T* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if constexpr (sizeof(T) == 4)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-                 :: "r"(d), "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
-                 :: "r"(d), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// 1/d: the hardware estimate refined by Newton. d = 0 gives NaN (as 0/0
-// does in the IEEE form q * (1/0) * 0), never a finite value.
-__device__ __forceinline__ float fast_rcp(float d) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(d));
-  return fmaf(r, fmaf(-d, r, 1.0f), r);
-}
-
-__device__ __forceinline__ double fast_rcp(double d) {
-  double r;
-  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(d));
-  const double e = fma(-d, r, 1.0);
-  return fma(r, fma(e, e, e), r);      // r (1 + e + e^2): error ~e^3
-}
-
-// Compact one list row's occupied slots (>= 0) into `out` in list
-// order; returns their count. All 32 lanes take part.
-__device__ __forceinline__ int compact(const int32_t* __restrict__ row,
-                                       int S, int32_t* out, int lane) {
-  int cnt = 0;
-  for (int s0 = 0; s0 < S; s0 += 32) {
-    const int v = s0 + lane < S ? row[s0 + lane] : -1;
-    const unsigned m = __ballot_sync(0xffffffffu, v >= 0);
-    if (v >= 0) out[cnt + __popc(m & ((1u << lane) - 1u))] = v;
-    cnt += __popc(m);
-  }
-  return cnt;
-}
-
-// One pair's term G(z, x) added to (sr, si); `self` drops it (the
-// target's own slot, only tested where SELF).
-template <typename T, bool LOG, bool SELF>
-__device__ __forceinline__ void pair_term(const Rec<T>& s, bool self, T zr,
-                                          T zi, T& sr, T& si) {
-  const T dx = s.x - zr, dy = s.y - zi;          // z_src - z_tgt
-  const T d2 = dx * dx + dy * dy;
-  if constexpr (LOG) {
-    T lr = T(0.5) * log(d2), li = atan2(-dy, -dx);
-    if (SELF && self) {
-      lr = T(0);
-      li = T(0);
-    }
-    sr += s.qr * lr - s.qi * li;
-    si += s.qr * li + s.qi * lr;
-  } else {
-    T inv = fast_rcp(d2);                         // q/(dx + i dy)
-    if (SELF && self) inv = T(0);
-    sr += (s.qr * dx + s.qi * dy) * inv;
-    si += (s.qi * dx - s.qr * dy) * inv;
-  }
-}
-
-// The sums over one staged source leaf's `cnt` valid records at the
-// lane's two targets (slots t0, t1).
-template <typename T, bool LOG, bool SELF, int NU>
-__device__ __forceinline__ void leaf_sum(const Rec<T>* __restrict__ src,
-                                         int cnt, int t0, int t1, T z0r,
-                                         T z0i, T z1r, T z1i, T& s0r,
-                                         T& s0i, T& s1r, T& s1i) {
-  s0r = s0i = s1r = s1i = T(0);
-  if constexpr (NU > 0) {
-    if (cnt == NU) {
-#pragma unroll 16
-      for (int j = 0; j < NU; ++j) {
-        const Rec<T> s = src[j];
-        pair_term<T, LOG, SELF>(s, j == t0, z0r, z0i, s0r, s0i);
-        pair_term<T, LOG, SELF>(s, j == t1, z1r, z1i, s1r, s1i);
-      }
-      return;
-    }
-  }
-#pragma unroll 4
-  for (int j = 0; j < cnt; ++j) {
-    const Rec<T> s = src[j];
-    pair_term<T, LOG, SELF>(s, j == t0, z0r, z0i, s0r, s0i);
-    pair_term<T, LOG, SELF>(s, j == t1, z1r, z1i, s1r, s1i);
-  }
 }
 
 // Local-expansion Horner at the two pre-centered targets.
@@ -248,27 +143,12 @@ __global__ void __launch_bounds__(WARPS * 32, 5) eval_fused_kernel(
   Rec<T>* ring = reinterpret_cast<Rec<T>*>(region);
   const int relems = region_elems(n, P);
   int32_t* s_rank = reinterpret_cast<int32_t*>(region + relems);
-  int32_t* s_list = s_rank + NSTAGE * n;
+  int32_t* s_list = s_rank + ring_ranks(n);
 
   // Read both lists once.
   const int np = compact(p2p + row * S, S, s_list, lane);
   const int nm = m2p != nullptr ? compact(m2p + row * Sm, Sm, s_list + S, lane)
                                 : 0;
-
-  // Stage source leaf s_list[s] into ring slot s % NSTAGE.
-  auto issue = [&](int s) {
-    const int src = s_list[s];
-    const long long sb = (b * nb + src) * n, rb = (long long)src * n;
-    Rec<T>* dst = ring + (s % NSTAGE) * n;
-    int32_t* rdst = s_rank + (s % NSTAGE) * n;
-    for (int j = lane; j < n; j += 32) {
-      cp_async(&dst[j].x, zr + sb + j);
-      cp_async(&dst[j].y, zi + sb + j);
-      cp_async(&dst[j].qr, qr + sb + j);
-      cp_async(&dst[j].qi, qi + sb + j);
-      cp_async(rdst + j, rk + rb + j);
-    }
-  };
 
   for (int g0 = 0; g0 < n; g0 += GROUP) {
     const int t0 = g0 + lane, t1 = g0 + 32 + lane;
@@ -283,35 +163,9 @@ __global__ void __launch_bounds__(WARPS * 32, 5) eval_fused_kernel(
              a1 ? ti[row * n + t1] : T(0), p0r, p0i, p1r, p1i);
 
     // P2P: a two-stage cp.async ring over the compacted list.
-    __syncwarp();                        // lists written; region free
-    for (int s = 0; s < NSTAGE - 1; ++s) {
-      if (s < np) issue(s);
-      cp_async_commit();
-    }
-    for (int s = 0; s < np; ++s) {
-      if (s + NSTAGE - 1 < np) issue(s + NSTAGE - 1);
-      cp_async_commit();
-      cp_async_wait<NSTAGE - 1>();
-      __syncwarp();                      // every lane's copies landed
-      const Rec<T>* rec = ring + (s % NSTAGE) * n;
-      const int32_t* rks = s_rank + (s % NSTAGE) * n;
-      int cnt = 0;                       // valid sources: a prefix
-      for (int j0 = 0; j0 < n; j0 += 32)
-        cnt += __popc(__ballot_sync(0xffffffffu,
-                                    j0 + lane < n && rks[j0 + lane] >= 0));
-      T s0r, s0i, s1r, s1i;
-      if (s_list[s] == box)              // the target's own leaf
-        leaf_sum<T, LOG, true, 0>(rec, cnt, t0, t1, z0r, z0i, z1r, z1i, s0r,
-                                  s0i, s1r, s1i);
-      else
-        leaf_sum<T, LOG, false, LOG ? 0 : NF>(rec, cnt, t0, t1, z0r, z0i,
-                                              z1r, z1i, s0r, s0i, s1r, s1i);
-      p0r += s0r;
-      p0i += s0i;
-      p1r += s1r;
-      p1i += s1i;
-      __syncwarp();                      // slot consumed before refill
-    }
+    near_sum<T, LOG, NF>(s_list, np, box, b, nb, n, zr, zi, qr, qi, rk, ring,
+                         s_rank, lane, t0, t1, z0r, z0i, z1r, z1i, p0r, p0i,
+                         p1r, p1i);
 
     // M2P: stage the occupied rows (as many as the region holds; all of
     // them at the paper's sizes), then Horner per target.
@@ -349,9 +203,7 @@ __global__ void __launch_bounds__(WARPS * 32, 5) eval_fused_kernel(
 // Warps (target leaves) per block: WARPS, or fewer where their staging
 // regions would not fit in a block's shared memory.
 static int warps_per_block(size_t elem, int n, int P, int S, int Sm) {
-  const size_t per = warp_bytes(elem, n, P, S, Sm);
-  const size_t fit = SMEM_OPTIN / per;
-  return fit < (size_t)WARPS ? (int)fit : WARPS;
+  return fit_warps(warp_bytes(elem, n, P, S, Sm), WARPS);
 }
 
 // Dynamic shared memory of one block: each warp's region.

@@ -17,114 +17,260 @@
 // this contributes 0 where the plain sweep core/fmm.py:p2l_sweep goes
 // singular — a measure-zero geometry.
 //
-// Bound on the H100: operations. Each (pair, particle) costs the
-// reciprocal and ~(p+1) complex multiply-adds (about 8 (p+1) flops)
-// against 32 bytes of particle data, far above the bytes line.
+// Bound on the H100: bytes. The lists are nearly empty (at N = 2^20,
+// p = 17 about 1% of the slots are occupied, ~0.5 entries a leaf), so
+// the work is ~9e7 flops, about a microsecond at the vector rate, while
+// the list rows, the referenced source leaves' planes and the p+1
+// outputs of every leaf take several microseconds at 3.35 TB/s.
 //
-// Design: one block owns one target leaf and loops over its p2l slots;
-// threads run over the source box's particles, each with its own power
-// recurrence over the p+1 terms, writing its terms into a (p+1) x threads
-// shared array. A fixed-order shared-memory tree reduction sums each
-// coefficient, and thread l accumulates coefficient l in a register
-// across slots; the block stores its p+1 outputs once. No atomics:
-// results are bitwise reproducible.
-#include "common.cuh"
+// Design: one warp owns one target leaf (WARPS a block); there is no
+// block barrier and no atomic, so a warp never waits on another and
+// results are bitwise reproducible (a problem's row of a batch equals its
+// own launch).
+// 1. The warp reads its list row once, coalesced (ceil(S/32) loads a
+//    lane), and compacts the occupied slots in list order with a ballot
+//    (pairs.cuh:compact). A leaf with no entry stores its p+1 zeros and
+//    is done: most leaves, so the kernel's time is mostly this read and
+//    these stores.
+// 2. For each entry in list order, lane j takes particles j, j + 32, ...
+//    of the source leaf, straight from the planes (coalesced rows: at
+//    ~0.5 entries a leaf a shared-memory ring has nothing to overlap),
+//    forms 1/(x - z0) (rcp.approx + Newton, only where d2 > 0) and the
+//    power recurrence, and adds each term to a per-lane accumulator that
+//    lives across all of the leaf's entries.
+// 3. After the last entry one fixed-order warp reduction per coefficient
+//    (an xor shuffle butterfly: every lane ends with the same bits), and
+//    lane l stores coefficient l. The log kernel scales b~_l by -1/l at
+//    the store.
+// 4. p = 17 (P = 18) keeps the 2P accumulators in registers; other P keep
+//    them in a per-warp shared array with rows padded to 33 lanes, summed
+//    row by row by lane l after the last entry. n = 64 is an instantiation
+//    (both particles of a lane's leaf loaded before the arithmetic); other
+//    n take the generic loop.
+// It replaces a first design (one block a leaf, a serial scan of all S
+// list slots with one dependent global load each, and per occupied slot a
+// shared-memory tree reduction with 7 block barriers), which ran at 7% /
+// 10% of its bound (f32 / f64) on the card. Tried on the card at the
+// uniform 2^20 plan and found slower (20 back-to-back launches, f32 /
+// f64): eight warps a block, 0.0145 / 0.0273 ms against four warps'
+// 0.0138 / 0.0233 (the f64 instantiation takes 120 registers, so a
+// four-warp block fills the SM's register file in finer steps); in f64
+// the accumulators in the shared array instead of registers, 0.0393 ms;
+// the generic n loop at n = 64, 0.0154 / 0.0261.
+// What holds it at ~1/4 of the bound is latency: most warps issue one
+// list-row read and one store, and the register count caps the warps in
+// flight that could hide it (16 an SM in f64, 32 in f32).
+#include "pairs.cuh"
+
+constexpr int WARPS = 4;       // target leaves per block, one warp each
+constexpr int PFIX = 18;       // P = p + 1 at the paper's p = 17
+constexpr int ROW = 33;        // lanes a row of the shared accumulators
+
+// One warp's shared memory: its compacted list row and, for the generic
+// P, the (2, P, ROW) accumulators.
+static __host__ __device__ size_t warp_bytes(size_t elem, int P, int S,
+                                             bool regs) {
+  size_t b = sizeof(int32_t) * (size_t)S;
+  b = (b + 15) / 16 * 16;
+  if (!regs) b += elem * (size_t)(2 * P * ROW);
+  return b;
+}
+
+// The terms of one source particle (x, q) at the target center c with
+// radius rh: add(l, re, im) for l = 0 .. P-1 (P = PF where PF > 0).
+template <typename T, bool LOG, int PF, typename Add>
+__device__ __forceinline__ void particle_terms(T px, T py, T cq, T sq, T cr,
+                                               T ci, T rh, int P_, Add add) {
+  const int P = PF > 0 ? PF : P_;
+  const T dxr = px - cr, dxi = py - ci;      // x - z0
+  const T d2 = dxr * dxr + dxi * dxi;
+  const bool ok = d2 > T(0);
+  const T k = ok ? fast_rcp(d2) : T(0);
+  const T invr = dxr * k, invi = -dxi * k;  // 1 / (x - z0)
+  const T wr = rh * invr, wi = rh * invi;   // rho / (x - z0)
+  T pwr, pwi;
+  constexpr int l0 = LOG ? 1 : 0;
+  if constexpr (LOG) {
+    // b~_0 term: q log(z0 - x) = q (log|d|, arg(-d))
+    const T lr = ok ? T(0.5) * log(d2) : T(0);
+    const T li = ok ? atan2(-dxi, -dxr) : T(0);
+    add(0, cq * lr - sq * li, cq * li + sq * lr);
+    pwr = cq * wr - sq * wi;
+    pwi = cq * wi + sq * wr;
+  } else {
+    pwr = cq * invr - sq * invi;
+    pwi = cq * invi + sq * invr;
+  }
+#pragma unroll
+  for (int l = l0; l < P; ++l) {
+    add(l, pwr, pwi);
+    const T nr = pwr * wr - pwi * wi;
+    pwi = pwr * wi + pwi * wr;
+    pwr = nr;
+  }
+}
+
+// The sum over all lanes of v, the same bits in every lane.
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+// Coefficient l of the leaf's sums as stored: -v/l for the log kernel's
+// l >= 1.
+template <typename T, bool LOG>
+__device__ __forceinline__ T scaled(T v, int l) {
+  return LOG && l > 0 ? -v / T(l) : v;
+}
+
+template <typename T, bool LOG, int PF, int NF>
+__global__ void __launch_bounds__(WARPS * 32) p2l_kernel(
+    const int32_t* __restrict__ lists, const T* __restrict__ z0r,
+    const T* __restrict__ z0i, const T* __restrict__ rho,
+    const T* __restrict__ xr, const T* __restrict__ xi,
+    const T* __restrict__ qr, const T* __restrict__ qi, int nb, int S,
+    int n_, int P_, T* __restrict__ outr, T* __restrict__ outi) {
+  const int n = NF > 0 ? NF : n_;
+  const int P = PF > 0 ? PF : P_;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int box = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (box >= nb) return;                 // warp-uniform: warp barriers only
+  const long long b = blockIdx.y, row = b * nb + box;
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* mine = smem_raw + warp * warp_bytes(sizeof(T), P, S, PF > 0);
+  int32_t* s_list = reinterpret_cast<int32_t*>(mine);
+
+  const T cr = z0r[row], ci = z0i[row], rh = rho[row];
+  const int ne = compact(lists + row * S, S, s_list, lane);
+  T* o_r = outr + row * P;
+  T* o_i = outi + row * P;
+  if (ne == 0) {                         // warp-uniform
+    for (int l = lane; l < P; l += 32) o_r[l] = o_i[l] = T(0);
+    return;
+  }
+  __syncwarp();                          // list written
+
+  if constexpr (PF > 0) {
+    T ar[PF], ai[PF];
+#pragma unroll
+    for (int l = 0; l < PF; ++l) ar[l] = ai[l] = T(0);
+    auto add = [&](int l, T re, T im) {
+      ar[l] += re;
+      ai[l] += im;
+    };
+    for (int e = 0; e < ne; ++e) {
+      const long long base = (b * nb + s_list[e]) * n + lane;
+      if constexpr (NF > 0 && NF % 32 == 0) {
+        // every lane's NF/32 particles loaded before the arithmetic
+        constexpr int K = NF / 32;
+        T px[K], py[K], cq[K], sq[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          px[k] = xr[base + 32 * k];
+          py[k] = xi[base + 32 * k];
+          cq[k] = qr[base + 32 * k];
+          sq[k] = qi[base + 32 * k];
+        }
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          particle_terms<T, LOG, PF>(px[k], py[k], cq[k], sq[k], cr, ci, rh,
+                                     P, add);
+      } else {
+        for (int j = 0; lane + j < n; j += 32)
+          particle_terms<T, LOG, PF>(xr[base + j], xi[base + j],
+                                     qr[base + j], qi[base + j], cr, ci, rh,
+                                     P, add);
+      }
+    }
+    T mr = T(0), mi = T(0);
+#pragma unroll
+    for (int l = 0; l < PF; ++l) {
+      const T sr = warp_sum(ar[l]), si = warp_sum(ai[l]);
+      if (lane == l) {
+        mr = sr;
+        mi = si;
+      }
+    }
+    if (lane < PF) {
+      o_r[lane] = scaled<T, LOG>(mr, lane);
+      o_i[lane] = scaled<T, LOG>(mi, lane);
+    }
+  } else {
+    T* acc_r = reinterpret_cast<T*>(mine
+                                    + (sizeof(int32_t) * S + 15) / 16 * 16);
+    T* acc_i = acc_r + P * ROW;
+    for (int l = 0; l < P; ++l) {
+      acc_r[l * ROW + lane] = T(0);
+      acc_i[l * ROW + lane] = T(0);
+    }
+    auto add = [&](int l, T re, T im) {
+      acc_r[l * ROW + lane] += re;
+      acc_i[l * ROW + lane] += im;
+    };
+    for (int e = 0; e < ne; ++e) {
+      const long long base = (b * nb + s_list[e]) * n + lane;
+      for (int j = 0; lane + j < n; j += 32)
+        particle_terms<T, LOG, 0>(xr[base + j], xi[base + j], qr[base + j],
+                                  qi[base + j], cr, ci, rh, P, add);
+    }
+    __syncwarp();                        // every lane's column written
+    for (int l = lane; l < P; l += 32) {
+      T sr = T(0), si = T(0);
+      for (int k = 0; k < 32; ++k) {
+        sr += acc_r[l * ROW + k];
+        si += acc_i[l * ROW + k];
+      }
+      o_r[l] = scaled<T, LOG>(sr, l);
+      o_i[l] = scaled<T, LOG>(si, l);
+    }
+  }
+}
+
+static bool in_registers(int P) { return P == PFIX; }
+
+static int warps_per_block(size_t elem, int P, int S) {
+  return fit_warps(warp_bytes(elem, P, S, in_registers(P)), WARPS);
+}
+
+// Dynamic shared memory of one block: each warp's list row (and
+// accumulators for the generic P).
+static size_t smem_bytes(size_t elem, int P, int S) {
+  return warps_per_block(elem, P, S)
+         * warp_bytes(elem, P, S, in_registers(P));
+}
+
+template <typename T, bool LOG, int PF, int NF>
+static int launch_one(dim3 grid, int wpb, size_t smem, cudaStream_t s,
+                      const void* lists, const void* z0r, const void* z0i,
+                      const void* rho, const void* xr, const void* xi,
+                      const void* qr, const void* qi, int nb, int S, int n,
+                      int P, void* outr, void* outi) {
+  const int rc = allow_smem(p2l_kernel<T, LOG, PF, NF>, smem);
+  if (rc) return rc;
+  p2l_kernel<T, LOG, PF, NF><<<grid, wpb * 32, smem, s>>>(
+      (const int32_t*)lists, (const T*)z0r, (const T*)z0i, (const T*)rho,
+      (const T*)xr, (const T*)xi, (const T*)qr, (const T*)qi, nb, S, n, P,
+      (T*)outr, (T*)outi);
+  return launch_status();
+}
 
 template <typename T, bool LOG>
-__global__ void p2l_kernel(const int32_t* __restrict__ lists,
-                           const T* __restrict__ z0r,
-                           const T* __restrict__ z0i,
-                           const T* __restrict__ rho,
-                           const T* __restrict__ xr, const T* __restrict__ xi,
-                           const T* __restrict__ qr, const T* __restrict__ qi,
-                           int nb, int S, int n, int P,
-                           T* __restrict__ outr, T* __restrict__ outi) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int nt = blockDim.x, tid = threadIdx.x;
-  T* red_r = reinterpret_cast<T*>(smem_raw);   // [P][nt]
-  T* red_i = red_r + P * nt;
-  const long long b = blockIdx.y;
-  const long long row = b * nb + blockIdx.x;
-  const T cr = z0r[row], ci = z0i[row], rh = rho[row];
-  T accr = T(0), acci = T(0);                  // coefficient `tid` (< P)
-
-  for (int s = 0; s < S; ++s) {
-    const int src = lists[row * S + s];
-    if (src < 0) continue;                     // block-uniform
-    for (int l = 0; l < P; ++l) red_r[l * nt + tid] = red_i[l * nt + tid] = T(0);
-    const long long base = (b * nb + src) * n;
-    for (int j = tid; j < n; j += nt) {
-      const T px = xr[base + j], py = xi[base + j];
-      const T cq = qr[base + j], sq = qi[base + j];
-      const T dxr = px - cr, dxi = py - ci;    // x - z0
-      const T d2 = dxr * dxr + dxi * dxi;
-      const bool ok = d2 > T(0);
-      const T k = ok ? T(1) / d2 : T(0);
-      const T invr = dxr * k, invi = -dxi * k; // 1 / (x - z0)
-      const T wr = rh * invr, wi = rh * invi;  // rho / (x - z0)
-      T pwr, pwi;
-      int l0;
-      if (LOG) {
-        // b~_0 term: q log(z0 - x) = q (log|d|, arg(-d))
-        const T lr = ok ? T(0.5) * log(d2) : T(0);
-        const T li = ok ? atan2(-dxi, -dxr) : T(0);
-        red_r[tid] += cq * lr - sq * li;
-        red_i[tid] += cq * li + sq * lr;
-        pwr = cq * wr - sq * wi;
-        pwi = cq * wi + sq * wr;
-        l0 = 1;
-      } else {
-        pwr = cq * invr - sq * invi;
-        pwi = cq * invi + sq * invr;
-        l0 = 0;
-      }
-      for (int l = l0; l < P; ++l) {
-        red_r[l * nt + tid] += pwr;
-        red_i[l * nt + tid] += pwi;
-        const T nr = pwr * wr - pwi * wi;
-        pwi = pwr * wi + pwi * wr;
-        pwr = nr;
-      }
-    }
-    __syncthreads();
-    for (int st = nt / 2; st > 0; st >>= 1) {  // fixed-order tree
-      if (tid < st)
-        for (int l = 0; l < P; ++l) {
-          red_r[l * nt + tid] += red_r[l * nt + tid + st];
-          red_i[l * nt + tid] += red_i[l * nt + tid + st];
-        }
-      __syncthreads();
-    }
-    if (tid < P) {
-      T sr = red_r[tid * nt], si = red_i[tid * nt];
-      if (LOG && tid > 0) {                    // b~_l = -(sum q w^l) / l
-        sr = -sr / T(tid);
-        si = -si / T(tid);
-      }
-      accr += sr;
-      acci += si;
-    }
-    __syncthreads();                           // red is rewritten next slot
-  }
-  if (tid < P) {
-    outr[row * P + tid] = accr;
-    outi[row * P + tid] = acci;
-  }
-}
-
-// Threads per block: a power of two covering the particles and the
-// coefficients.
-static int block_threads(int n, int P) {
-  int nt = 32;
-  while (nt < n && nt < 128) nt *= 2;
-  while (nt < P) nt *= 2;
-  return nt;
-}
-
-// Dynamic shared memory of one block: the (p+1) x threads reduction
-// planes, real and imaginary.
-static size_t smem_bytes(size_t elem, int n, int P) {
-  return elem * (size_t)(2 * P * block_threads(n, P));
+static int launch_kernel(dim3 grid, int wpb, size_t smem, cudaStream_t s,
+                         const void* lists, const void* z0r, const void* z0i,
+                         const void* rho, const void* xr, const void* xi,
+                         const void* qr, const void* qi, int nb, int S, int n,
+                         int P, void* outr, void* outi) {
+#define P2L_ARGS                                                              \
+  grid, wpb, smem, s, lists, z0r, z0i, rho, xr, xi, qr, qi, nb, S, n, P, outr, \
+      outi
+  if (in_registers(P))
+    return n == NFIX ? launch_one<T, LOG, PFIX, NFIX>(P2L_ARGS)
+                     : launch_one<T, LOG, PFIX, 0>(P2L_ARGS);
+  return launch_one<T, LOG, 0, 0>(P2L_ARGS);
+#undef P2L_ARGS
 }
 
 template <typename T>
@@ -133,22 +279,19 @@ static int launch(const void* lists, const void* z0r, const void* z0i,
                   const void* qr, const void* qi, int B, int nb, int S, int n,
                   int P, int log_kernel, void* outr, void* outi,
                   void* stream) {
-  const int nt = block_threads(n, P);
-  const size_t smem = smem_bytes(sizeof(T), n, P);
-  if (nt > 1024 || smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(nb, B);
+  const int wpb = warps_per_block(sizeof(T), P, S);
+  if (n < 1 || P < 1 || S < 1 || wpb < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes(sizeof(T), P, S);
+  const dim3 grid((nb + wpb - 1) / wpb, B);
   cudaStream_t s = (cudaStream_t)stream;
-  if (log_kernel)
-    p2l_kernel<T, true><<<grid, nt, smem, s>>>(
-        (const int32_t*)lists, (const T*)z0r, (const T*)z0i, (const T*)rho,
-        (const T*)xr, (const T*)xi, (const T*)qr, (const T*)qi, nb, S, n, P,
-        (T*)outr, (T*)outi);
-  else
-    p2l_kernel<T, false><<<grid, nt, smem, s>>>(
-        (const int32_t*)lists, (const T*)z0r, (const T*)z0i, (const T*)rho,
-        (const T*)xr, (const T*)xi, (const T*)qr, (const T*)qi, nb, S, n, P,
-        (T*)outr, (T*)outi);
-  return launch_status();
+  return log_kernel
+             ? launch_kernel<T, true>(grid, wpb, smem, s, lists, z0r, z0i,
+                                      rho, xr, xi, qr, qi, nb, S, n, P, outr,
+                                      outi)
+             : launch_kernel<T, false>(grid, wpb, smem, s, lists, z0r, z0i,
+                                       rho, xr, xi, qr, qi, nb, S, n, P, outr,
+                                       outi);
 }
 
 #define P2L_ENTRY(NAME, T)                                                    \
@@ -165,6 +308,6 @@ P2L_ENTRY(p2l_f64, double)
 
 // Dynamic shared memory per block (bytes) of a launch at these sizes.
 extern "C" int repro_smem_bytes(int elem, int n, int P, int S) {
-  (void)S;
-  return static_cast<int>(smem_bytes(elem, n, P));
+  (void)n;
+  return static_cast<int>(smem_bytes(elem, P, S));
 }

@@ -158,19 +158,31 @@ def _twice(fn):
     return first
 
 
-def _eval_operands(cfg, cuda, seed=0, edit=None):
-    """The fused evaluation's operands of one uniform problem; ``edit``
-    may change the particles (after the tree is built)."""
+def _pair_kernel(which, cfg, cuda, seed=0):
+    """The operands of the fused evaluation or of the P2P kernel (the
+    two kernels share one pair loop) on one uniform problem: (kernel
+    call, plain call, its zr, zi and rank planes), the planes as the
+    calls see them, so a test may edit them in place."""
     z, q = particles("uniform", cfg.n, seed, device=cuda)
     plan = F.fmm_build(z[None], q[None], cfg)
-    if edit is not None:
-        plan = plan._replace(tree=edit(plan.tree))
-    mult = F.upward(plan.tree, cfg)
-    rho = F.effective_radii(plan.tree, cfg)
-    local = F.downward(mult, plan.tree, plan.conn, cfg, rho)
-    return eval_operands(local, mult[-1], plan.tree, plan.conn, cfg)
+    if which == "p2p":
+        args, kw = p2p_operands(plan.tree, plan.conn, cfg)
+        kern, plain, (zr, zi, rk) = p2p_cuda, p2p_plain, args[1:3] + args[5:6]
+    else:
+        mult = F.upward(plan.tree, cfg)
+        rho = F.effective_radii(plan.tree, cfg)
+        local = F.downward(mult, plan.tree, plan.conn, cfg, rho)
+        args, kw = eval_operands(local, mult[-1], plan.tree, plan.conn, cfg)
+        kern, plain = eval_fused_cuda, eval_fused_plain
+        zr, zi, rk = args[2], args[3], args[6]
+    return (lambda: kern(*args, **kw)), (lambda: plain(*args, **kw)), zr, \
+        zi, rk
 
 
+PAIR_KERNELS = ["eval_fused", "p2p"]
+
+
+@pytest.mark.parametrize("which", PAIR_KERNELS)
 @pytest.mark.parametrize("n,nlevels,dtype,kernel", [
     (1 << 14, 4, "f64", "harmonic"),      # n_max 64, full leaves: unrolled
     (1 << 14, 4, "f32", "harmonic"),
@@ -179,47 +191,116 @@ def _eval_operands(cfg, cuda, seed=0, edit=None):
     (3000, 3, "f64", "harmonic"),         # n_max 47: generic
     (6000, 3, "f32", "harmonic"),         # n_max 94: generic, two passes
 ])
-def test_eval_fused_kernel_instantiations(cuda, n, nlevels, dtype, kernel):
+def test_eval_fused_kernel_instantiations(cuda, which, n, nlevels, dtype,
+                                          kernel):
+    """The shared pair loop's instantiations, in the fused evaluation and
+    in the P2P kernel."""
     cfg = FmmConfig(n=n, nlevels=nlevels, p=17, dtype=dtype, kernel=kernel)
-    args, kw = _eval_operands(cfg, cuda)
-    rk = args[6]
+    run, plain, _, _, rk = _pair_kernel(which, cfg, cuda)
     assert bool((rk < 0).any()) == (n % 4**nlevels != 0)
-    got = _twice(lambda: eval_fused_cuda(*args, **kw))
-    ref = eval_fused_plain(*args, **kw)
+    got = _twice(run)
     tol = 1e-10 if dtype == "f64" else 1e-5
-    assert _rel(torch.complex(*got), torch.complex(*ref)) <= tol
+    assert _rel(torch.complex(*got), torch.complex(*plain())) <= tol
 
 
-def test_eval_fused_keeps_a_coincident_pair_non_finite(cuda):
+@pytest.mark.parametrize("which", PAIR_KERNELS)
+def test_eval_fused_keeps_a_coincident_pair_non_finite(cuda, which):
     """Two distinct particles of one leaf at one position: both targets'
     phi non-finite in kernel and plain version alike, every other target
     finite and equal."""
     cfg = FmmConfig(n=1 << 12, nlevels=3, p=17, dtype="f64")
-    args, kw = _eval_operands(cfg, cuda, seed=4)
-    zr, zi = args[2], args[3]
+    run, plain, zr, zi, _ = _pair_kernel(which, cfg, cuda, seed=4)
     zr[0, 5, 9], zi[0, 5, 9] = zr[0, 5, 2], zi[0, 5, 2]
-    got = torch.complex(*_twice(lambda: eval_fused_cuda(*args, **kw)))
-    ref = torch.complex(*eval_fused_plain(*args, **kw))
+    got = torch.complex(*_twice(run))
+    ref = torch.complex(*plain())
     bad = ~torch.isfinite(got)
     assert torch.equal(bad, ~torch.isfinite(ref))
     assert bad[0, 5, 2] and bad[0, 5, 9] and int(bad.sum()) == 2
     assert _rel(got[~bad], ref[~bad]) <= 1e-10
 
 
-def test_eval_fused_padded_slot_at_a_target_stays_out(cuda):
+@pytest.mark.parametrize("which", PAIR_KERNELS)
+def test_eval_fused_padded_slot_at_a_target_stays_out(cuda, which):
     """A padded source slot sits at z = 0; a particle moved to 0 must not
     meet it as 0 * inf: the padded slot is never read."""
     cfg = FmmConfig(n=(1 << 12) - 30, nlevels=3, p=17, dtype="f64")
-    args, kw = _eval_operands(cfg, cuda, seed=5)
-    rk, zr, zi = args[6], args[2], args[3]
+    run, plain, zr, zi, rk = _pair_kernel(which, cfg, cuda, seed=5)
     leaf = int(torch.nonzero((rk < 0).any(-1))[0])
     assert float(zr[0, leaf, -1]) == 0 and float(zi[0, leaf, -1]) == 0
     zr[0, leaf, 0], zi[0, leaf, 0] = 0.0, 0.0
-    got = torch.complex(*_twice(lambda: eval_fused_cuda(*args, **kw)))
-    ref = torch.complex(*eval_fused_plain(*args, **kw))
+    got = torch.complex(*_twice(run))
+    ref = torch.complex(*plain())
     valid = rk[None] >= 0
     assert bool(torch.isfinite(got[valid]).all())
     assert _rel(got[valid], ref[valid]) <= 1e-10
+
+
+def _p2l_args(cfg, cuda, seed, dists=("uniform", "normal")):
+    """The P2L kernel's operands of one problem per distribution (B =
+    len(dists))."""
+    zs, qs = zip(*(particles(d, cfg.n, seed, device=cuda) for d in dists))
+    plan = F.fmm_build(torch.stack(zs), torch.stack(qs), cfg)
+    rho = F.effective_radii(plan.tree, cfg)
+    return p2l_operands(plan.tree, plan.conn, cfg, rho[-1])
+
+
+@pytest.mark.parametrize("n,nlevels,p,dtype,kernel", [
+    (1 << 14, 4, 17, "f64", "harmonic"),  # n_max 64, P = 18: registers
+    (1 << 14, 4, 17, "f32", "harmonic"),
+    (1 << 14, 4, 17, "f64", "log"),
+    (1 << 14, 4, 17, "f32", "log"),
+    ((1 << 14) - 200, 4, 17, "f64", "harmonic"),   # padded tails
+    (3000, 3, 17, "f64", "log"),          # n_max 47: generic n
+    (6000, 3, 17, "f32", "harmonic"),     # n_max 94: generic n
+    (1 << 14, 4, 8, "f64", "harmonic"),   # generic P: shared accumulators
+    (1 << 14, 4, 30, "f64", "log"),
+    (1 << 14, 4, 30, "f32", "harmonic"),
+])
+def test_p2l_kernel_instantiations_and_batch(cuda, n, nlevels, p, dtype,
+                                             kernel):
+    """B = 2 (uniform, normal) against the plain version, the normal
+    plan's leaf with the most entries on its own; two launches bitwise
+    equal, each row bitwise equal to a launch of that problem alone, and
+    every leaf with no entry exactly 0."""
+    cfg = FmmConfig(n=n, nlevels=nlevels, p=p, dtype=dtype, kernel=kernel)
+    args, kw = _p2l_args(cfg, cuda, seed=8)
+    lists = args[0]
+    got = _twice(lambda: p2l_cuda(*args, **kw))
+    ref = p2l_plain(*args, **kw)
+    tol = 1e-10 if dtype == "f64" else 1e-4
+    gc, rc = torch.complex(*got), torch.complex(*ref)
+    assert _rel(gc, rc) <= tol
+    full = int((lists[1] >= 0).sum(-1).argmax())
+    assert int((lists[1, full] >= 0).sum()) > 1
+    assert _rel(gc[1, full], rc[1, full]) <= tol
+    empty = ~(lists >= 0).any(-1)
+    assert bool(empty.any()) and bool((~empty).any())
+    assert bool((got[0][empty] == 0).all() and (got[1][empty] == 0).all())
+    for b in range(2):
+        one = [a[b:b + 1].contiguous() for a in args]
+        alone = p2l_cuda(*one, **kw)
+        assert all(torch.equal(x[b], y[0]) for x, y in zip(got, alone))
+
+
+@pytest.mark.parametrize("kernel", ["harmonic", "log"])
+def test_p2l_kernel_masks_a_source_on_the_target_center(cuda, kernel):
+    """A source particle exactly on its target leaf's center contributes
+    0 (the d2 > 0 mask), as in the plain version: the result is finite
+    and bitwise that of the same particle with no charge."""
+    cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype="f64", kernel=kernel)
+    args, kw = _p2l_args(cfg, cuda, seed=9, dists=("normal",))
+    lists, cr, ci, _, xr, xi, qr, qi = args
+    tgt = int(torch.nonzero((lists[0] >= 0).any(-1))[0])
+    src = int(lists[0, tgt][lists[0, tgt] >= 0][0])
+    xr[0, src, 0], xi[0, src, 0] = cr[0, tgt], ci[0, tgt]
+    got = _twice(lambda: p2l_cuda(*args, **kw))
+    ref = p2l_plain(*args, **kw)
+    assert bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all())
+    assert _rel(torch.complex(*got), torch.complex(*ref)) <= 1e-10
+    qr[0, src, 0], qi[0, src, 0] = 0.0, 0.0
+    without = p2l_cuda(*args, **kw)
+    assert all(torch.equal(a[0, tgt], b[0, tgt])
+               for a, b in zip(got, without))
 
 
 @pytest.mark.parametrize("p,kernel,dtype", [(17, "harmonic", "f64"),

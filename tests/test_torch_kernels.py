@@ -3,6 +3,7 @@ plain version) matches the reference's Pallas wrapper (interpret mode)
 on one shared topology, in f64, within 1e-10 relative — both G-kernels,
 and the fused evaluation with and without its M2P region. The same
 inputs (the reference's plan and expansions, as numpy) go to both."""
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -77,6 +78,49 @@ def test_eval_fused_matches_pallas(kernel, use_p2l_m2p):
                            plan.conn, tcfg)
     assert got.shape == (1, tcfg.n)
     assert rel(got[0], ref) <= TOL
+
+
+def _gapped(rows):
+    """A (..., S) list spread over (..., 2S): each slot at an odd
+    position, -1 between them."""
+    out = np.full(rows.shape[:-1] + (2 * rows.shape[-1],), -1, np.int32)
+    out[..., 1::2] = rows
+    return out
+
+
+@pytest.mark.parametrize("kernel", ["harmonic", "log"])
+def test_p2l_matches_pallas_at_batch_two_with_gapped_rows(kernel):
+    """The P2L wrapper (its plain version on these CPU tensors) on two
+    problems in one call, their p2l rows spread with -1 between the
+    occupied slots: each row of the batch against the reference's Pallas
+    P2L of that problem with the same gapped lists; leaves with no entry
+    exactly 0 in both."""
+    cfg = SMALL | dict(kernel=kernel, nlevels=3)
+    probs = [shared_plan(d, 2048, seed=s, **cfg)
+             for d, s in (("normal", 13), ("layer", 14))]
+    jcfg, tcfg = probs[0][:2]
+    idx = leaf_particle_index(tcfg)
+    staged, want = [], []
+    for _, _, jp, plan in probs:
+        gapped = _gapped(np.asarray(jp.conn.p2l))
+        rho = JF.effective_radii(jp.tree, jcfg)[jcfg.nlevels]
+        want.append(np.asarray(jax_p2l(
+            jp.tree, jp.conn._replace(p2l=jnp.asarray(gapped)), jcfg, idx,
+            rho)))
+        args, kw = p2l_operands(plan.tree, plan.conn._replace(
+            p2l=torch.from_numpy(gapped)[None]), tcfg, t(rho))
+        staged.append(args)
+    args = [torch.cat(parts) for parts in zip(*staged)]
+    lists = args[0]
+    assert lists.shape == (2, 4**3, 2 * tcfg.strong_cap)
+    assert bool((lists[..., 0::2] < 0).all()) and bool((lists >= 0).any())
+    empty = ~(lists >= 0).any(-1)
+    assert bool(empty.any()) and bool((~empty).any())
+    got = torch.complex(*p2l_cuda(*args, **kw))
+    for b in range(2):
+        assert rel(got[b], want[b]) <= TOL
+        assert bool((got[b][empty[b]] == 0).all())
+        assert np.all(want[b][empty[b].numpy()] == 0)
 
 
 def test_wrappers_take_the_plain_version_on_cpu():

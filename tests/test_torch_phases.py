@@ -24,6 +24,7 @@ from repro.solver.backends import get_backend as jax_get_backend
 from repro_torch.core import fmm as F
 from repro_torch.core.direct import direct_potential
 from repro_torch.core.topology import leaf_particle_index
+from repro_torch.kernels.common import scatter_from_leaves
 from repro_torch.kernels import (l2p_apply, l2p_cuda, l2p_operands,
                                  l2p_plain, m2l_level_apply, nbody_cuda,
                                  nbody_direct, nbody_plain, p2p_apply,
@@ -96,6 +97,44 @@ def test_p2p_matches_pallas(kernel, dtype, dist):
     got = p2p_apply(plan.tree, plan.conn, tcfg)
     assert got.shape == (1, tcfg.n) and got.dtype == tcfg.torch_complex
     assert rel(got[0], ref) <= (TOL if dtype == "f64" else F32_TOL)
+
+
+@pytest.mark.parametrize("kernel", ["harmonic", "log"])
+def test_p2p_matches_pallas_at_batch_two_with_gapped_rows(kernel):
+    """The P2P wrapper (its plain version on these CPU tensors) on two
+    problems in one call, their p2p rows spread with -1 between the
+    occupied slots and one leaf's row masked whole: each row of the batch
+    against the reference's Pallas P2P of that problem with the same
+    lists; the masked leaf's near field exactly 0 in both."""
+    cfg = SMALL | dict(kernel=kernel, nlevels=3)
+    probs = [shared_plan(d, 2048, seed=s, **cfg)
+             for d, s in (("uniform", 15), ("normal", 16))]
+    jcfg, tcfg = probs[0][:2]
+    idx = leaf_particle_index(tcfg)
+    staged, want = [], []
+    for _, _, jp, plan in probs:
+        rows = np.asarray(jp.conn.p2p)
+        gapped = np.full(rows.shape[:-1] + (2 * rows.shape[-1],), -1,
+                         np.int32)
+        gapped[:, 1::2] = rows
+        gapped[5] = -1
+        want.append(np.asarray(jax_p2p(
+            jp.tree, jp.conn._replace(p2p=jnp.asarray(gapped)), jcfg, idx)))
+        args, kw = p2p_operands(plan.tree, plan.conn._replace(
+            p2p=torch.from_numpy(gapped)[None]), tcfg)
+        staged.append(args)
+    args = [torch.cat(parts) if a.dim() == 3 else parts[0]
+            for a, parts in zip(staged[0], zip(*staged))]
+    lists = args[0]
+    assert lists.shape == (2, 4**3, 2 * tcfg.strong_cap)
+    assert bool((lists[..., 0::2] < 0).all())
+    outr, outi = p2p_cuda(*args, **kw)
+    got = scatter_from_leaves(torch.complex(outr, outi), tcfg)
+    leaf5 = idx[5][idx[5] >= 0]
+    for b in range(2):
+        assert rel(got[b], want[b]) <= TOL
+        assert bool((outr[b, 5] == 0).all() and (outi[b, 5] == 0).all())
+        assert np.all(want[b][leaf5] == 0)
 
 
 @pytest.mark.parametrize("n,m,dtype", [(256, 256, "f32"), (512, 512, "f64"),
