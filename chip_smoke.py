@@ -8,14 +8,17 @@ Runs top to bottom and exits nonzero on the first failure:
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
 2. builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together) and prints each
-   kernel's registers, shared memory and spills;
+   kernel's registers, shared memory and spills, and for the direct
+   N-body kernel its targets a thread (K) and the SASS instructions a
+   pair of its pair loop (``cuobjdump -sass``);
 3. kernel phase: on the operands of the N = 2^20, p = 17 plans (paper
    Fig. 5.8 scale) of uniform, normal and layer particles (caps raised
    until no list overflows), in f32 and f64, holds each kernel against
    its plain torch version on the same inputs (classify bit-identical;
    the others per element within F64_TOL in f64 and F32_KERNEL_TOL in
    f32; the direct N-body sum on N_SAMPLE of the particles as targets
-   against all 2^20 sources), checks that a second launch is bitwise
+   against all 2^20 sources, where the kernel splits the sources to
+   fill the card), checks that a second launch is bitwise
    equal to the first, prints how many list entries each plan occupies,
    and at the uniform plan times each kernel (many back-to-back launches
    on its staged operands between one pair of CUDA events) and its plain
@@ -37,10 +40,12 @@ Runs top to bottom and exits nonzero on the first failure:
    paths — the same launches as one apply, each row equal to that
    problem's ``apply``;
 7. direct baseline: ``nbody_direct`` all-pairs at N = 2^20 in f32 and
-   f64 (one launch each), timed beside the FMM apply, and the paper's
-   Fig. 5.5 sweep N = 2^9 .. 2^20 with the break-even N;
+   f64 (one launch each, its source splits printed), timed beside the
+   FMM apply, and the paper's Fig. 5.5 sweep N = 2^9 .. 2^20 with the
+   break-even N;
 8. prints one JSON line with every kernel's launches, error, times and
-   bound, the card line again, and last
+   bound (N-body also its splits at both shapes, K, registers and SASS
+   instructions a pair), the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; without one it exits nonzero and prints no result.
@@ -178,6 +183,85 @@ def ptxas_summary(log: str) -> list[str]:
         elif "Used" in s and "registers" in s and name:
             lines.append(f"  {name}: {s.split(':', 1)[1].strip()}; {spill}")
     return lines
+
+
+def sass_pair_loop(sass: str, kernel: str, marker: str = "MUFU.RCP") -> dict:
+    """The innermost loop of each instantiation of ``kernel`` in ``sass``
+    (``cuobjdump -sass`` output; a loop is a branch back to a lower
+    address) that runs the most ``marker`` instructions (one reciprocal
+    estimate a pair): its instructions, pairs (markers), instructions a
+    pair and its opcode mix."""
+    out = {}
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        name = demangle(block.split("\n", 1)[0].strip())
+        if not name.startswith(kernel):
+            continue
+        ops, loops = [], []
+        for addr, pred, opcode, branch in re.findall(
+                r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][\w.]*)"
+                r"(?:\s+0x([0-9a-f]+))?", block):
+            ops.append((int(addr, 16), opcode))
+            if opcode == "BRA" and branch and int(branch, 16) <= ops[-1][0]:
+                loops.append((int(branch, 16), ops[-1][0]))
+
+        def pairs(lo, hi):
+            return sum(o.startswith(marker) for a, o in ops if lo <= a <= hi)
+
+        inner = [(lo, hi) for lo, hi in loops if pairs(lo, hi) and not any(
+            (a, b) != (lo, hi) and lo <= a <= b <= hi and pairs(a, b)
+            for a, b in loops)]
+        if not inner:
+            continue
+        lo, hi = max(inner, key=lambda lh: pairs(*lh))
+        body = [o.split(".")[0] for a, o in ops if lo <= a <= hi]
+        mix = {o: body.count(o) for o in sorted(set(body), key=body.count,
+                                                 reverse=True)}
+        out[name] = dict(instructions=len(body), pairs=pairs(lo, hi),
+                         per_pair=len(body) / pairs(lo, hi), mix=mix)
+    return out
+
+
+def nbody_code() -> dict:
+    """Per dtype: the built N-body kernel's targets a thread (K), its
+    registers (``cuobjdump -res-usage``) and the SASS instructions a pair
+    of its pair loop."""
+    from repro_torch.kernels.build import LIBRARIES, nvcc_path
+    from repro_torch.kernels.nbody import nbody as nb
+
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+
+    def dump(flag):
+        return subprocess.run([str(tool), flag,
+                               str(LIBRARIES["nbody"].target())],
+                              capture_output=True, text=True,
+                              check=True).stdout
+
+    sass = sass_pair_loop(dump("-sass"), "nbody_kernel")
+    regs = {demangle(f): int(r) for f, r in re.findall(
+        r"Function (\S+):\s*REG:(\d+)", dump("-res-usage"))}
+    # a wrapper from before the register blocking: one target a thread
+    k_of = getattr(nb, "TARGETS_PER_THREAD", {4: 1, 8: 1})
+    out = {}
+    for dt, t, elem in (("f32", "float", 4), ("f64", "double", 8)):
+        name = f"nbody_kernel<{t}>"
+        loop = sass.get(name)
+        out[dt] = dict(k=k_of[elem], registers=regs.get(name),
+                       sass_per_pair=None if loop is None else round(
+                           loop["per_pair"], 3),
+                       sass_loop=loop)
+    return out
+
+
+def nbody_splits(n: int, m: int, dt: str, torch):
+    """Source splits of an N-body launch of n targets and m sources (1
+    for a wrapper with no split)."""
+    from repro_torch.kernels.nbody import nbody as nb
+
+    plan = getattr(nb, "nbody_plan", None)
+    if plan is None:
+        return 1
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return plan(n, m, 8 if dt == "f64" else 4, sms)[1]
 
 
 def scaled_err(a, b) -> float:
@@ -535,12 +619,16 @@ def kernel_phase(dt: str, torch) -> list[dict]:
                        bound_ms=1e3 * max(t_ops, t_bytes),
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
                        library_ms=None)
+            geom = ""
             if name == "nbody":
                 # the all-pairs N = 2^20 time and bound replace these in
                 # the direct-baseline phase; the plain version only runs
                 # at this shape
-                row.update(plain_shape=[N_SAMPLE, N], ms_plain_shape=ms)
-            print(f"time {tag}: ms={ms:.4f} plain_ms={plain_ms:.3f} "
+                splits = nbody_splits(N_SAMPLE, N, dt, torch)
+                row.update(plain_shape=[N_SAMPLE, N], ms_plain_shape=ms,
+                           splits_plain_shape=splits)
+                geom = f" splits={splits}"
+            print(f"time {tag}:{geom} ms={ms:.4f} plain_ms={plain_ms:.3f} "
                   f"bound_ms={row['bound_ms']:.4f} ({row['bound_by']}; "
                   f"{flops:.3e} flop of which {dense:.3e} dense, {nbytes:.3e} "
                   f"B); share of bound "
@@ -784,7 +872,8 @@ def direct_phase(rows: list, main: dict, torch) -> None:
         ms = time_kernel(staged_launch("nbody", lambda: nbody_direct(z, z, q)),
                          3, torch, warmup=1)
         fmm_ms = 1e3 * m["secs"]
-        print(f"direct[{dt}] N={N}: nbody_direct {ms:.2f} ms (CUDA events, "
+        print(f"direct[{dt}] N={N}: splits={nbody_splits(N, N, dt, torch)}"
+              f"; nbody_direct {ms:.2f} ms (CUDA events, "
               f"3 back-to-back launches); FMM apply {fmm_ms:.2f} ms (host "
               f"clock); direct/FMM = {ms / fmm_ms:.2f}; vs the f64 direct "
               f"sum: gate {gate:.3e} (limit {tol:g}), rel_err_inf {err:.3e}",
@@ -795,7 +884,8 @@ def direct_phase(rows: list, main: dict, torch) -> None:
         t_bytes = 8.0 * N * sz / PEAK_BYTES
         row.update(launches=counts["nbody"], ms=ms,
                    bound_ms=1e3 * max(t_ops, t_bytes),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes")
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   splits=nbody_splits(N, N, dt, torch))
         del phi
 
     for dt in ("f32", "f64"):
@@ -856,6 +946,11 @@ def main() -> int:
             for dt, sz in (("f32", 4), ("f64", 8))}
     print(f"dynamic shared memory per block (bytes, from each launcher), "
           f"p={P_TERMS}, n_max=64, lists 48 (weak 128): {smem}", flush=True)
+    code = nbody_code()
+    for dt, c in code.items():
+        print(f"nbody[{dt}]: K={c['k']} targets a thread, "
+              f"{c['registers']} registers, SASS pair loop {c['sass_loop']}",
+              flush=True)
 
     rows = []
     for dt in ("f32", "f64"):
@@ -880,6 +975,9 @@ def main() -> int:
         base, rdt = row["name"].rsplit("_", 1)
         if base != "nbody":
             row["launches"] = paths[rdt][base]
+        else:
+            row.update((k, code[rdt][k])
+                       for k in ("k", "registers", "sass_per_pair"))
         check(row["launches"] > 0, f"{row['name']} never launched on the "
               "path that runs it")
     del served

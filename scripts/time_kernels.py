@@ -2,6 +2,7 @@
 """Time the port's kernels on one CUDA card, for one source tree.
 
     python3 scripts/time_kernels.py [--src DIR] [--label TEXT]
+                                    [--only NAME,...]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``;
 another tree's ``src``, e.g. an earlier commit unpacked with ``git
@@ -12,9 +13,15 @@ launch its wrapper makes the way ``chip_smoke.py`` does: many
 back-to-back launches of the recorded launch on the staged operands
 between one pair of CUDA events (``chip_smoke.time_kernel``). The
 N-body kernel runs at chip_smoke's sampled shape (4096 targets against
-all 2^20 sources). Prints one JSON line per dtype: the label, the dtype,
-the plan's occupied list entries, milliseconds per launch by kernel and
-a digest of each kernel's output bytes. The operands come from the seed,
+all 2^20 sources, "nbody") and as one full all-pairs launch (2^20
+targets, "nbody_all", 3 launches). Prints one JSON line per dtype: the
+label, the dtype, the plan's occupied list entries, milliseconds per
+launch by kernel, a digest of each kernel's output bytes, and the
+N-body kernel's source splits at both shapes, targets a thread (K),
+registers, SASS instructions a pair in its pair loop, and the SM clock
+and power that ``nvidia-smi`` sampled during the all-pairs launches
+(``--only`` times the kernels named; "nbody_all" is the all-pairs
+launch). The operands come from the seed,
 so two trees whose kernel gives bitwise the same output print the same
 digest; the fused evaluation and L2P take their local-expansion planes
 from the seed too (not from the downward pass, whose M2L and P2L
@@ -27,6 +34,8 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import statistics
+import subprocess
 import sys
 from pathlib import Path
 
@@ -55,12 +64,38 @@ def output_digest(name: str, kern, args, kwargs, torch) -> str:
     return h.hexdigest()[:16]
 
 
+def sampled_clock(fn):
+    """``fn()`` while ``nvidia-smi`` samples the card every 100 ms: its
+    result and the median SM clock (MHz) and power draw (W) of the
+    samples (None where none came)."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        out = fn()
+    finally:
+        proc.terminate()
+        text = proc.communicate()[0]
+    samples = []
+    for row in text.splitlines():
+        try:
+            samples.append([float(v) for v in row.split(",")])
+        except ValueError:
+            continue
+    med = (lambda i: statistics.median(r[i] for r in samples)
+           if samples else None)
+    return out, {"sm_mhz": med(0), "power_w": med(1), "samples": len(samples)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="directory that holds the repro_torch package")
     ap.add_argument("--label", default="", help="tag of the printed lines")
     ap.add_argument("--reps", type=int, default=smoke.KERNEL_REPS)
+    ap.add_argument("--only", default="",
+                    help="comma-separated kernels to time (default: all)")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
 
@@ -76,19 +111,36 @@ def main() -> int:
     print(f"{args.label}: repro_torch from {Path(repro_torch.__file__).parent}"
           f"; {smoke.card_line()}", flush=True)
     build_all()
+    code = smoke.nbody_code()
     for dt in ("f32", "f64"):
         z, q = particles("uniform", smoke.N, smoke.SEED)
         cfg, cap, occupied = smoke.capture(
             fmm_config(smoke.N, p=smoke.P_TERMS, dtype=dt), z, q, torch)
         ms, digest = {}, {}
+        only = set(filter(None, args.only.split(",")))
         for name, (kern, _) in smoke.kernel_impls(cfg).items():
+            if only and name not in only:
+                continue
             a, k = cap[name]
             call = smoke.staged_launch(name, lambda: kern(a, k))
             ms[name] = smoke.time_kernel(call, args.reps, torch)
             digest[name] = output_digest(name, kern, a, k, torch)
-        print(json.dumps({"label": args.label, "dtype": dt,
-                          "occupied": occupied, "ms": ms,
-                          "digest": digest}), flush=True)
+        line = {"label": args.label, "dtype": dt, "occupied": occupied,
+                "ms": ms, "digest": digest}
+        if not only or "nbody_all" in only:
+            # every particle a target: the direct baseline's launch
+            kern = smoke.kernel_impls(cfg)["nbody"][0]
+            a, k = cap["nbody"]
+            full = a[2:4] + a[2:]
+            call = smoke.staged_launch("nbody", lambda: kern(full, k))
+            ms["nbody_all"], clock = sampled_clock(
+                lambda: smoke.time_kernel(call, 3, torch, warmup=1))
+            digest["nbody_all"] = output_digest("nbody", kern, full, k, torch)
+            line["nbody"] = dict(code[dt], clock_during_all=clock, splits={
+                "sample": smoke.nbody_splits(smoke.N_SAMPLE, smoke.N, dt,
+                                             torch),
+                "all": smoke.nbody_splits(smoke.N, smoke.N, dt, torch)})
+        print(json.dumps(line), flush=True)
         del cap, z, q
         torch.cuda.empty_cache()
     return 0

@@ -21,7 +21,7 @@ from .eval import (eval_fused_apply, eval_fused_cuda, eval_fused_plain,
 from .l2p import l2p_apply, l2p_cuda, l2p_operands, l2p_plain
 from .m2l import (fused_levels, m2l_cuda, m2l_fused_apply, m2l_level_apply,
                   m2l_operands, m2l_plain)
-from .nbody import nbody_cuda, nbody_direct, nbody_plain
+from .nbody import nbody_cuda, nbody_direct, nbody_plain, nbody_plan
 from .p2p import p2p_apply, p2p_cuda, p2p_operands, p2p_plain
 from .topology import leaf_classify_cuda, leaf_classify_plain
 
@@ -32,7 +32,7 @@ __all__ = [
     "l2p_apply", "l2p_cuda", "l2p_operands", "l2p_plain",
     "fused_levels", "m2l_cuda", "m2l_fused_apply", "m2l_level_apply",
     "m2l_operands", "m2l_plain",
-    "nbody_cuda", "nbody_direct", "nbody_plain",
+    "nbody_cuda", "nbody_direct", "nbody_plain", "nbody_plan",
     "p2p_apply", "p2p_cuda", "p2p_operands", "p2p_plain",
     "leaf_classify_cuda", "leaf_classify_plain",
 ]

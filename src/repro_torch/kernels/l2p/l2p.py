@@ -46,6 +46,8 @@ def l2p_cuda(br, bi, tr, ti, rk, *, p: int):
     check_tensors(br, bi, tr, ti, dtype=dt, device=dev)
     outr = torch.empty((B, nb, n), dtype=dt, device=dev)
     outi = torch.empty_like(outr)
+    if outr.numel() == 0:
+        return outr, outi
     sfx = "f64" if dt == torch.float64 else "f32"
     LIB.launch(f"l2p_{sfx}", br, bi, tr, ti, rk, B, nb, n, Pn, outr, outi)
     return outr, outi

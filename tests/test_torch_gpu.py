@@ -8,6 +8,7 @@ tests/test_torch_gpu.py`` (the shared conftest imports JAX, which the
 port does not need)."""
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -20,6 +21,7 @@ from repro_torch.kernels import (eval_fused_cuda, eval_fused_plain,
                                  leaf_classify_cuda, leaf_classify_plain,
                                  m2l_cuda, m2l_operands, m2l_plain,
                                  nbody_cuda, nbody_direct, nbody_plain,
+                                 nbody_plan,
                                  p2l_cuda, p2l_operands, p2l_plain, p2p_cuda,
                                  p2p_operands, p2p_plain, reset_launch_counts)
 from repro_torch.solver import FmmSolver, get_backend, register_backend
@@ -355,3 +357,110 @@ def test_m2l_kernel_weak_rows_with_gaps(cuda):
     assert all(torch.equal(a, b) for a, b in zip(got, packed))
     ref = m2l_plain(*spread)
     assert _rel(torch.complex(*got), torch.complex(*ref)) <= 1e-10
+
+
+def _nbody_planes(n, m, dtype, cuda, seed):
+    """Real planes (tzr, tzi, szr, szi, qr, qi) on the card: m sources in
+    the unit square, n targets of which a third (at most m) sit on
+    source positions (dropped from their sums by the d2 > 0
+    exclusion)."""
+    rng = np.random.default_rng(seed)
+    zs = rng.uniform(0, 1, m) + 1j * rng.uniform(0, 1, m)
+    q = rng.normal(size=m) + 1j * rng.normal(size=m)
+    zt = rng.uniform(0, 1, n) + 1j * rng.uniform(0, 1, n)
+    k = min(n // 3, m)
+    zt[:k] = zs[rng.choice(m, k, replace=False)]
+    rdt = torch.float32 if dtype == "f32" else torch.float64
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(cuda, rdt)
+                 for z in (zt, zs, q) for a in (z.real, z.imag))
+
+
+def _magnitude_sum(tzr, tzi, szr, szi, qr, qi):
+    """S_i = sum_{x_j != y_i} |q_j| / |x_j - y_i| in f64: the scale of an
+    f32 all-pairs sum's rounding error (as chip_smoke.py gates it)."""
+    qa = torch.hypot(qr.double(), qi.double())
+    out = torch.zeros_like(tzr, dtype=torch.float64)
+    step = max(1, (1 << 24) // tzr.numel())
+    for s in range(0, szr.numel(), step):
+        r = torch.hypot(szr[None, s:s + step].double() - tzr[:, None].double(),
+                        szi[None, s:s + step].double() - tzi[:, None].double())
+        out += torch.where(r > 0, qa[None, s:s + step] / r.clamp_min(1e-300),
+                           torch.zeros_like(r)).sum(-1)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("shape", ["split", "split-4096", "unsplit"])
+def test_nbody_kernel_with_and_without_the_source_split(cuda, dtype, shape):
+    """The N-body kernel against its plain version at a ragged N and M
+    with coincident positions: 37 x 5000 and 4133 x 20011 (split sources,
+    the partials reduced in the launch) and enough targets that the tiles
+    fill the card alone (one split). One launch a call, finite, two
+    launches bitwise equal; f64 within 1e-10, f32 within 1e-4 of
+    sum |q| / |x - y| per target."""
+    from repro_torch.kernels.nbody.nbody import (BLOCKS_PER_SM, THREADS,
+                                                 TARGETS_PER_THREAD)
+    elem = 4 if dtype == "f32" else 8
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n, m = {"split": (37, 5000), "split-4096": (4133, 20011),
+            "unsplit": (BLOCKS_PER_SM * sms * THREADS
+                        * TARGETS_PER_THREAD[elem] + 37, 1001)}[shape]
+    _, splits, _ = nbody_plan(n, m, elem, sms)
+    assert (splits > 1) == shape.startswith("split")
+    args = _nbody_planes(n, m, dtype, cuda, seed=n + m)
+    reset_launch_counts()
+    got = _twice(lambda: nbody_cuda(*args))
+    assert launch_counts()["nbody"] == 2
+    ref = nbody_plain(*args)
+    diff = (torch.complex(*got) - torch.complex(*ref)).abs()
+    assert bool(torch.isfinite(diff).all())
+    if dtype == "f64":
+        assert float(diff.max()) <= 1e-10 * float(torch.complex(*ref).abs()
+                                                  .max())
+    else:
+        assert float((diff.double() / _magnitude_sum(*args)).max()) <= 1e-4
+
+
+def _l2p_synthetic(B, nb, n, p, dtype, cuda, seed, offset=0):
+    """Seeded L2P operands: (B, nb, p+1) coefficients, (B, nb, n)
+    positions |t| < 1, (nb, n) ranks with every third leaf's tail padded
+    (-1). ``offset`` > 0 cuts the position planes from a longer buffer,
+    so they start off the 16-byte grid."""
+    rng = np.random.default_rng(seed)
+    rdt = torch.float32 if dtype == "f32" else torch.float64
+
+    def plane(*shape, scale=1.0):
+        a = torch.from_numpy(scale * rng.uniform(-1, 1, shape)).to(rdt)
+        if offset:
+            buf = torch.zeros(a.numel() + offset, dtype=rdt)
+            buf[offset:] = a.reshape(-1)
+            return buf.to(cuda)[offset:].view(shape)
+        return a.to(cuda)
+
+    br, bi = plane(B, nb, p + 1), plane(B, nb, p + 1)
+    tr, ti = plane(B, nb, n, scale=0.7), plane(B, nb, n, scale=0.7)
+    rk = torch.arange(nb * n, dtype=torch.int32).view(nb, n)
+    for box in range(0, nb, 3):
+        rk[box, n - 1 - box % n:] = -1
+    return br, bi, tr, ti, rk.to(cuda)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("n,p,offset", [(40, 17, 0), (64, 17, 0),
+                                        (33, 17, 0), (94, 17, 0),
+                                        (40, 70, 0), (64, 17, 1)])
+def test_l2p_kernel_leaf_widths_and_batch(cuda, dtype, n, p, offset):
+    """B = 2 over 37 leaves (no multiple of a block's 16): n = 40 and 64
+    (paired 8/16-byte loads), 33 (odd: one slot a load), 94 (two passes
+    of 64 slots), P = 71 (more coefficients than lanes), planes off the
+    16-byte grid (one slot a load). Against the plain
+    version, padded slots exactly 0, two launches bitwise equal."""
+    args = _l2p_synthetic(2, 37, n, p, dtype, cuda, seed=n + p, offset=offset)
+    assert args[2].is_contiguous()
+    got = _twice(lambda: l2p_cuda(*args, p=p))
+    ref = l2p_plain(*args, p=p)
+    pad = args[-1] < 0
+    assert bool(pad.any())
+    assert bool((got[0][:, pad] == 0).all() and (got[1][:, pad] == 0).all())
+    tol = 1e-10 if dtype == "f64" else 1e-5
+    assert _rel(torch.complex(*got), torch.complex(*ref)) <= tol

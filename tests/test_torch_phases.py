@@ -87,6 +87,38 @@ def test_l2p_matches_pallas(kernel, dtype):
     assert rel(got[0], ref) <= (TOL if dtype == "f64" else F32_TOL)
 
 
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+def test_l2p_matches_pallas_at_batch_two_with_ragged_leaves(dtype):
+    """The L2P wrapper (its plain version on these CPU tensors) on two
+    problems in one call, at N = 630 over 16 leaves: n_max = 40, which is
+    no multiple of 32 or 64, and padded slots. Each row against the
+    reference's Pallas L2P of that problem with the same seeded local
+    expansions; the padded slots exactly 0."""
+    cfg = SMALL | dict(dtype=dtype, p=17)
+    probs = [shared_plan(d, 630, seed=s, **cfg)
+             for d, s in (("normal", 17), ("layer", 18))]
+    jcfg, tcfg = probs[0][:2]
+    idx = leaf_particle_index(tcfg)
+    assert idx.shape == (16, 40) and bool((idx < 0).any())
+    rng = np.random.default_rng(19)
+    staged, want = [], []
+    for _, _, jp, plan in probs:
+        local = (rng.normal(size=(16, 18)) + 1j * rng.normal(size=(16, 18)))
+        want.append(np.asarray(jax_l2p(jnp.asarray(local), jp.tree, jcfg,
+                                       idx)))
+        args, kw = l2p_operands(t(local), plan.tree, tcfg)
+        staged.append(args)
+    args = [torch.cat(parts) if a.dim() == 3 else parts[0]
+            for a, parts in zip(staged[0], zip(*staged))]
+    assert args[2].shape == (2, 16, 40)
+    outr, outi = l2p_cuda(*args, **kw)
+    pad = args[-1] < 0
+    assert bool((outr[:, pad] == 0).all() and (outi[:, pad] == 0).all())
+    got = scatter_from_leaves(torch.complex(outr, outi), tcfg)
+    for b in range(2):
+        assert rel(got[b], want[b]) <= (TOL if dtype == "f64" else F32_TOL)
+
+
 @pytest.mark.parametrize("kernel,dtype,dist", [("harmonic", "f64", "layer"),
                                                ("log", "f64", "normal"),
                                                ("harmonic", "f32", "normal")])
