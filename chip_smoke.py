@@ -24,28 +24,47 @@ Runs top to bottom and exits nonzero on the first failure:
    on its staged operands between one pair of CUDA events) and its plain
    version (CUDA events around each call), with the kernel's share of
    its bound;
-4. main path: ``FmmSolver.build(fmm_config(1 << 20, p=17))`` on the
+4. m2l_wide: the M2L kernel on synthetic weak rows of width
+   W = 128, 7,680 and 12,288 (ragged runs with gaps, sources from 3,000
+   boxes, a ragged last tile and empty boxes) in f32 and f64, against
+   its plain version, a second launch bitwise equal, the rows of width
+   128 spread over 12,288 slots bitwise equal to the packed ones, and
+   its dynamic shared memory (which must not grow with W) and time at
+   each W;
+5. main path: ``FmmSolver.build(fmm_config(1 << 20, p=17))`` on the
    default device and ``apply_checked`` on uniform, normal and layer
    particles (seed 0), in f32 and f64: the four main-path kernels launch
    exactly once per apply and the per-phase and N-body kernels never;
    accuracy against ``direct_potential`` on 4096 sampled targets over
    all 2^20 sources; in f64 the "cuda" and "reference" backends must
    agree within 1e-10;
-5. per-phase path: the "cuda" backend without its fused hooks,
+6. seam: the time-stepping shape of a vortex-method user on the main
+   path's uniform config, in f32 and f64: three steps of
+   ``refresh(z_k, q)`` then ``apply_plan(plan)`` on particles moved by
+   1e-4 N(0, 1) a step (clamped to the unit square), each step's phi
+   bitwise ``apply(z_k, q)``'s; ``refresh`` launches classify once,
+   ``apply_plan`` M2L, P2L and the fused evaluation once each;
+   ``trace_counts`` 1 / 1 on a fresh solver; ``stats`` without overflow
+   and its pair counts those of a numpy count of the plan's lists;
+   refresh and apply_plan ms (host clock ending in a synchronize,
+   median of the steps after the first) beside apply's; one step on the
+   per-phase backend with its launches;
+7. per-phase path: the "cuda" backend without its fused hooks,
    registered as "cuda-phases", on the same problems: M2L once per
    level, L2P and P2P once, classify and P2L once, the fused evaluation
    never; the same accuracy bounds; in f64 phi within 1e-10 of the main
    path's and the reference backend's;
-6. batched: ``apply_batched`` with B = 4 at N = 2^20 in f32 on both
+8. batched: ``apply_batched`` with B = 4 at N = 2^20 in f32 on both
    paths — the same launches as one apply, each row equal to that
    problem's ``apply``;
-7. direct baseline: ``nbody_direct`` all-pairs at N = 2^20 in f32 and
+9. direct baseline: ``nbody_direct`` all-pairs at N = 2^20 in f32 and
    f64 (one launch each, its source splits printed), timed beside the
    FMM apply, and the paper's Fig. 5.5 sweep N = 2^9 .. 2^20 with the
    break-even N;
-8. prints one JSON line with every kernel's launches, error, times and
+10. prints one JSON line with every kernel's launches, error, times and
    bound (N-body also its splits at both shapes, K, registers and SASS
-   instructions a pair), the card line again, and last
+   instructions a pair; M2L its wide-row times and shared memory), the
+   card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; without one it exits nonzero and prints no result.
@@ -94,6 +113,15 @@ F32_KERNEL_TOL = {"m2l": 2e-5, "p2l": 1e-4, "eval_fused": 1e-5, "p2p": 1e-5,
 # kernel).
 # The per-phase backend: the "cuda" backend with its fused hooks removed.
 PHASES = "cuda-phases"
+# m2l_wide: weak-list widths (the default cap, and two that the M2L kernel
+# refused before it staged its rows in chunks: above 7,008 (f64) and
+# 7,654 (f32) slots at p = 17), source boxes (rows empty) and target
+# boxes (4,099 boxes in all: the kernel's 7-box tiles leave a ragged one)
+WIDE_W = (128, 7680, 12288)
+WIDE_BOXES = (3000, 1099)
+# seam: time steps, and the step of the particles' random walk
+SEAM_STEPS = 3
+SEAM_EPS = 1e-4
 # Fig. 5.5 sweep of the direct baseline against the FMM
 SWEEP = [1 << k for k in range(9, 21)]
 # accuracy bounds of the JAX reference's own tests
@@ -433,13 +461,17 @@ def grow_caps(cfg, margins: dict):
 def capture(cfg, z, q, torch):
     """Build and evaluate one plan through the kernel hooks, raising the
     caps until no list overflows. Returns the config used, each kernel's
-    operands (positional, keyword) and the occupied list entries."""
+    operands (positional, keyword; "m2l_levels": the M2L operands of each
+    level, as the per-phase path stages them) and the occupied list
+    entries."""
     from repro_torch.core.fmm import fmm_build, fmm_evaluate
     from repro_torch.core.topology import MARGIN_CLASSES
     from repro_torch.kernels import (eval_fused_apply, eval_operands,
-                                     l2p_operands, leaf_classify_cuda,
-                                     m2l_fused_apply, m2l_operands,
-                                     p2l_apply, p2l_operands, p2p_operands)
+                                     fused_levels, l2p_operands,
+                                     leaf_classify_cuda, m2l_fused_apply,
+                                     m2l_operands, p2l_apply, p2l_operands,
+                                     p2p_operands)
+    from repro_torch.kernels.m2l.ops import m2l_planes
 
     cap = {}
 
@@ -449,6 +481,9 @@ def capture(cfg, z, q, torch):
 
     def m2l_rec(mult, weak, centers, c, rho):
         cap["m2l"] = (m2l_operands(mult, weak, centers, c, rho)[0], {})
+        # the per-phase path's operands: one level a launch
+        cap["m2l_levels"] = [m2l_planes(mult[l], weak[l], centers[l], c,
+                                        rho[l]) for l in fused_levels(c)]
         return m2l_fused_apply(mult, weak, centers, c, rho)
 
     def p2l_rec(tree, conn, c, rho):
@@ -736,6 +771,202 @@ def main_path(dt: str, torch) -> tuple[dict, dict]:
     return totals, out
 
 
+def wide_m2l_operands(W: int, dt: str, torch, seed: int = SEED,
+                      device: str = "cuda"):
+    """Operands of ``m2l_cuda`` with W-wide weak rows: 3,000 source boxes
+    in the unit square (their own rows empty) and 1,099 target boxes 1.5
+    to 3.5 units away, each row (5% of them empty) holding runs of 1-64
+    source boxes separated by gaps of 0-192 slots (about a quarter of the
+    slots occupied), radii 0.1-0.5, N(0, 1) multipoles; p = 17."""
+    import numpy as np
+
+    from repro_torch.core.fmm import m2l_mat
+
+    ns, nt = WIDE_BOXES
+    nb, P = ns + nt, P_TERMS + 1
+    rng = np.random.default_rng([seed, W])
+    weak = np.full((1, nb, W), -1, np.int32)
+    for t in range(ns, nb):
+        if rng.uniform() < 0.05:
+            continue
+        s = int(rng.integers(0, 64))
+        while s < W:
+            run = min(int(rng.integers(1, 65)), W - s)
+            weak[0, t, s:s + run] = rng.integers(0, ns, run)
+            s += run + int(rng.integers(0, 193))
+    cr = np.concatenate([rng.uniform(0, 1, ns), rng.uniform(2.5, 3.5, nt)])
+    ci = rng.uniform(0, 1, nb)
+    rdt = torch.float64 if dt == "f64" else torch.float32
+
+    def dev(a):
+        return torch.as_tensor(a).to(device, rdt).contiguous()
+
+    return (torch.as_tensor(weak).to(device),
+            dev(rng.normal(size=(1, nb, P))), dev(rng.normal(size=(1, nb, P))),
+            dev(cr[None]), dev(ci[None]), dev(rng.uniform(0.1, 0.5, (1, nb))),
+            m2l_mat(P_TERMS, rdt, torch.device(device)), "harmonic")
+
+
+def spread_rows(weak, W: int, seed: int = SEED):
+    """The weak rows spread over W slots in slot order (the same sorted
+    random W-subset of positions for every row), -1 elsewhere."""
+    import numpy as np
+    import torch
+
+    pos = np.sort(np.random.default_rng(seed).choice(W, weak.shape[-1],
+                                                     replace=False))
+    out = torch.full(weak.shape[:-1] + (W,), -1, dtype=weak.dtype,
+                     device=weak.device)
+    out[..., torch.as_tensor(pos, device=weak.device)] = weak
+    return out
+
+
+def m2l_wide_phase(dt: str, torch) -> dict:
+    """The M2L kernel at each width of ``WIDE_W``: against its plain
+    version, twice bitwise equal, the 128-wide rows spread over the
+    widest W bitwise the packed rows' result, shared memory and time.
+    Returns per W its ms, shared memory and error."""
+    from repro_torch.kernels import m2l_cuda, m2l_plain
+    from repro_torch.kernels.build import LIBRARIES
+
+    sz = 8 if dt == "f64" else 4
+    tol = F64_TOL if dt == "f64" else F32_KERNEL_TOL["m2l"]
+    out = {}
+    for W in WIDE_W:
+        tag = f"m2l_wide[{dt}/W={W}]"
+        args = wide_m2l_operands(W, dt, torch)
+        first = m2l_cuda(*args)
+        second = m2l_cuda(*args)
+        ref = m2l_plain(*args)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(first, second)),
+              f"{tag}: second launch differs from the first")
+        err = scaled_err(torch.complex(*first), torch.complex(*ref))
+        check(err <= tol, f"{tag}: kernel vs plain {err:.3e} > {tol}")
+        weak = args[0]
+        empty = ~(weak >= 0).any(-1)
+        check(bool((first[0][empty] == 0).all()
+                   and (first[1][empty] == 0).all()),
+              f"{tag}: an empty box is not exactly 0")
+        note = ""
+        if W == WIDE_W[0]:
+            wide = (spread_rows(weak, WIDE_W[-1]),) + tuple(args[1:])
+            spread = m2l_cuda(*wide)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(spread, first)),
+                  f"{tag}: rows spread over {WIDE_W[-1]} slots differ")
+            note = f"; spread over {WIDE_W[-1]} slots: bitwise equal"
+        smem = LIBRARIES["m2l"].smem_bytes(sz, 64, P_TERMS + 1, W)
+        ms = time_kernel(staged_launch("m2l", lambda: m2l_cuda(*args)), 5,
+                         torch)
+        entries = int((weak >= 0).sum())
+        print(f"{tag}: {entries} occupied entries, {int(empty.sum())} "
+              f"empty boxes; scaled_err={err:.3e} (limit {tol:g}); "
+              f"smem {smem} B; {ms:.4f} ms{note}", flush=True)
+        out[W] = dict(ms=ms, smem_bytes=smem, scaled_err=err,
+                      entries=entries)
+    smems = [out[W]["smem_bytes"] for W in WIDE_W]
+    check(smems[1] == smems[2] and smems[0] <= smems[1],
+          f"m2l_wide[{dt}]: shared memory grows with W: {smems}")
+    return out
+
+
+def perturbed(z, step: int, eps: float = SEAM_EPS):
+    """``tests/test_solver.py:_perturbed``: positions moved by eps N(0, 1)
+    per component (numpy seed ``step``), clamped to the unit square."""
+    import numpy as np
+    import torch
+
+    zn = z.cpu().numpy()
+    rng = np.random.default_rng(step)
+    zd = zn + eps * (rng.normal(size=zn.shape)
+                     + 1j * rng.normal(size=zn.shape))
+    return torch.from_numpy(np.clip(zd.real, 0, 1)
+                            + 1j * np.clip(zd.imag, 0, 1)).to(z.device)
+
+
+def plan_counts(conn) -> dict:
+    """``connectivity_stats``' pair counts and row maxima from a numpy
+    count of each list, moved to the host one by one."""
+    lists = {k: [t.cpu().numpy()] for k, t in
+             (("p2p", conn.p2p), ("p2l", conn.p2l), ("m2p", conn.m2p))}
+    weak = [w.cpu().numpy() for w in conn.weak]
+    strong = [s.cpu().numpy() for s in conn.strong]
+    out = {f"{k}_pairs": int((v[0] >= 0).sum()) for k, v in lists.items()}
+    out["m2l_pairs"] = sum(int((w >= 0).sum()) for w in weak)
+    out["strong_max"] = max(int((s >= 0).sum(-1).max()) for s in strong)
+    out["weak_max"] = max(int((w >= 0).sum(-1).max()) for w in weak)
+    return out
+
+
+def seam_phase(dt: str, main: dict, torch) -> None:
+    """refresh + apply_plan on moved particles, the main path's uniform
+    config: bitwise apply, launches per half, trace_counts, stats, the
+    median times; and one step on the per-phase backend."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.solver import FmmSolver
+
+    m = main["uniform"]
+    cfg, z, q = m["cfg"], m["z"], m["q"]
+    zero = {k: 0 for k in KERNELS}
+    want_refresh = dict(zero, classify=1)
+    want_plan = dict(zero, m2l=1, p2l=1, eval_fused=1)
+    solver = FmmSolver(cfg)                  # fresh: its own trace_counts
+    times = {"refresh": [], "apply_plan": [], "apply": []}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name].append(time.perf_counter() - t0)
+        return out, launch_counts()
+
+    for step in range(SEAM_STEPS):
+        tag = f"seam[{dt}/step {step}]"
+        zk = perturbed(z, step)
+        plan, c_refresh = timed("refresh", lambda: solver.refresh(zk, q))
+        phi, c_plan = timed("apply_plan", lambda: solver.apply_plan(plan))
+        ref, _ = timed("apply", lambda: solver.apply(zk, q))
+        check(c_refresh == want_refresh,
+              f"{tag}: refresh launches {c_refresh} (want {want_refresh})")
+        check(c_plan == want_plan,
+              f"{tag}: apply_plan launches {c_plan} (want {want_plan})")
+        check(torch.equal(phi, ref), f"{tag}: refresh + apply_plan is not "
+              "bitwise apply")
+        stats = solver.stats(zk, q)
+        counted = plan_counts(plan.conn)
+        check(stats["overflow"] == 0, f"{tag}: overflow {stats}")
+        check(all(stats[k] == v for k, v in counted.items()),
+              f"{tag}: stats {stats} != numpy count {counted}")
+        print(f"{tag}: refresh {1e3 * times['refresh'][-1]:.2f} ms, "
+              f"apply_plan {1e3 * times['apply_plan'][-1]:.2f} ms, apply "
+              f"{1e3 * times['apply'][-1]:.2f} ms; bitwise apply; "
+              f"launches {c_refresh} / {c_plan}; stats {stats}", flush=True)
+    check(solver.trace_counts == {"build": 1, "evaluate": 1},
+          f"seam[{dt}]: trace_counts {solver.trace_counts}")
+    ms = {k: 1e3 * statistics.median(v[1:]) for k, v in times.items()}
+    print(f"seam[{dt}] N={N}: refresh {ms['refresh']:.2f} ms + apply_plan "
+          f"{ms['apply_plan']:.2f} ms (median of steps 2-{SEAM_STEPS}); "
+          f"apply on the same steps {ms['apply']:.2f} ms; main-path apply "
+          f"{1e3 * m['secs']:.2f} ms; trace_counts {solver.trace_counts}",
+          flush=True)
+
+    phases = FmmSolver(cfg, backend=PHASES)
+    zk = perturbed(z, SEAM_STEPS)
+    plan, c_refresh = timed("refresh", lambda: phases.refresh(zk, q))
+    phi, c_plan = timed("apply_plan", lambda: phases.apply_plan(plan))
+    want = phase_counts(cfg)
+    got = {k: c_refresh[k] + c_plan[k] for k in KERNELS}
+    check(c_refresh == want_refresh and got == want,
+          f"seam[{dt}/{PHASES}]: launches {c_refresh} / {c_plan}")
+    check(torch.equal(phi, phases.apply(zk, q)),
+          f"seam[{dt}/{PHASES}]: refresh + apply_plan is not bitwise apply")
+    print(f"seam[{dt}/{PHASES}]: launches {c_refresh} / {c_plan}; bitwise "
+          "apply", flush=True)
+
+
 def register_phases(torch):
     """Register the per-phase backend: "cuda" without its fused hooks."""
     import dataclasses
@@ -955,6 +1186,10 @@ def main() -> int:
     rows = []
     for dt in ("f32", "f64"):
         rows += kernel_phase(dt, torch)
+    for dt in ("f32", "f64"):
+        wide = m2l_wide_phase(dt, torch)
+        next(r for r in rows if r["name"] == f"m2l_{dt}")["wide"] = {
+            str(W): v for W, v in wide.items()}
     served, paths = {}, {}
     for dt in ("f32", "f64"):
         totals, served[dt] = main_path(dt, torch)
@@ -964,6 +1199,8 @@ def main() -> int:
         paths[dt] = {k: totals[k] for k in
                      ("classify", "m2l", "p2l", "eval_fused")}
     register_phases(torch)
+    for dt in ("f32", "f64"):
+        seam_phase(dt, served[dt], torch)
     for dt in ("f32", "f64"):
         totals = per_phase_path(dt, served[dt], torch)
         print(f"phases[{dt}]: launches {totals}", flush=True)

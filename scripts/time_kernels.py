@@ -21,7 +21,8 @@ N-body kernel's source splits at both shapes, targets a thread (K),
 registers, SASS instructions a pair in its pair loop, and the SM clock
 and power that ``nvidia-smi`` sampled during the all-pairs launches
 (``--only`` times the kernels named; "nbody_all" is the all-pairs
-launch). The operands come from the seed,
+launch, "m2l_levels" the per-phase path's M2L, one launch a level,
+timed and digested as one). The operands come from the seed,
 so two trees whose kernel gives bitwise the same output print the same
 digest; the fused evaluation and L2P take their local-expansion planes
 from the seed too (not from the downward pass, whose M2L and P2L
@@ -125,6 +126,17 @@ def main() -> int:
             call = smoke.staged_launch(name, lambda: kern(a, k))
             ms[name] = smoke.time_kernel(call, args.reps, torch)
             digest[name] = output_digest(name, kern, a, k, torch)
+        if not only or "m2l_levels" in only:
+            from repro_torch.kernels import m2l_cuda
+            calls = [smoke.staged_launch("m2l", lambda a=a: m2l_cuda(*a))
+                     for a in cap["m2l_levels"]]
+            ms["m2l_levels"] = smoke.time_kernel(
+                lambda: [c() for c in calls], args.reps, torch)
+            h = hashlib.sha256()
+            for a in cap["m2l_levels"]:
+                for out in m2l_cuda(*a):
+                    h.update(out.cpu().numpy().tobytes())
+            digest["m2l_levels"] = h.hexdigest()[:16]
         line = {"label": args.label, "dtype": dt, "occupied": occupied,
                 "ms": ms, "digest": digest}
         if not only or "nbody_all" in only:

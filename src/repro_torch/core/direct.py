@@ -4,6 +4,8 @@
 device of its inputs, chunked over the targets so that the (chunk, N)
 pairwise block stays within a fixed element budget. Coincident points
 are excluded, matching the ``x_j != y_i`` convention of eq. (1.2).
+``direct_potential_numpy`` is the same sum in float64 numpy, one target
+at a time: an oracle independent of torch for small-N tests.
 """
 from __future__ import annotations
 
@@ -36,6 +38,22 @@ def direct_potential(z_eval: torch.Tensor, z_src: torch.Tensor,
         else:
             c = q[None, :] * torch.log(-safe)
         out[s:s + chunk] = torch.where(ok, c, torch.zeros_like(c)).sum(dim=-1)
+    return out
+
+
+def direct_potential_numpy(z_eval, z_src, q, kernel: str = "harmonic"):
+    """float64 numpy oracle (independent of torch) for small-N tests."""
+    ze = np.asarray(z_eval, dtype=np.complex128)
+    zs = np.asarray(z_src, dtype=np.complex128)
+    qs = np.asarray(q, dtype=np.complex128)
+    out = np.zeros_like(ze)
+    for i in range(len(ze)):
+        d = zs - ze[i]
+        ok = d != 0
+        if kernel == "harmonic":
+            out[i] = (qs[ok] / d[ok]).sum()
+        else:
+            out[i] = (qs[ok] * np.log(-d[ok])).sum()
     return out
 
 

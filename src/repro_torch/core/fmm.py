@@ -33,6 +33,8 @@ downward pass, and unless the evaluation is fused, ``fmm::l2p``,
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -40,10 +42,12 @@ import torch
 from torch.profiler import record_function
 
 from ..device import resolve_device
+from ..errors import CapOverflowError
 from . import expansions as E
 from .config import FmmConfig
 from .topology import (MARGIN_CLASSES, Connectivity, Tree,
-                       build_connectivity, build_tree, leaf_layout)
+                       build_connectivity, build_tree, connectivity_stats,
+                       leaf_layout)
 
 
 class FmmPlan(NamedTuple):
@@ -276,16 +280,18 @@ def _apply_p2l(local, tree, conn, cfg: FmmConfig, rho, p2l_impl):
     return local + p2l_impl(tree, conn, cfg, rho[cfg.nlevels])
 
 
-def _m2l_mat(cfg: FmmConfig, device) -> torch.Tensor:
-    return torch.as_tensor(E.m2l_matrix(cfg.p), dtype=cfg.torch_real,
-                           device=device)
+@functools.lru_cache(maxsize=16)
+def m2l_mat(p: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The constant (p+1, p+1) M2L matrix H as a tensor, built once per
+    (p, dtype, device) and shared by every later call (read only)."""
+    return torch.as_tensor(E.m2l_matrix(p), dtype=dtype, device=device)
 
 
 def downward(mult, tree: Tree, conn: Connectivity, cfg: FmmConfig,
              rho=None, p2l_impl=None) -> torch.Tensor:
     """Local coefficients at the leaf level (M2L, L2L, P2L), level by
     level — the plain sweep."""
-    mat = _m2l_mat(cfg, mult[-1].device)
+    mat = m2l_mat(cfg.p, cfg.torch_real, mult[-1].device)
 
     def m2l(m, weak, centers, c, r):
         return m2l_level(m, weak, centers, c, mat, r)
@@ -489,16 +495,51 @@ def unsort(phi_sorted: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(phi_sorted).scatter_(-1, perm, phi_sorted)
 
 
-def fmm_potential(z: torch.Tensor, q: torch.Tensor,
-                  cfg: FmmConfig) -> torch.Tensor:
-    """Phi(z_i) = sum_{j != i} G(z_i, x_j) for all input points (eq. 1.1),
-    plain sweeps; ``z``/``q`` (N,) or (B, N)."""
+def _potential(z: torch.Tensor, q: torch.Tensor, cfg: FmmConfig):
+    """(phi, plan) of (N,) or (B, N) inputs, plain sweeps."""
     single = z.dim() == 1
     if single:
         z, q = z[None], q[None]
     plan = fmm_build(z, q, cfg)
     phi = unsort(fmm_evaluate(plan, cfg), plan.tree.perm)
-    return phi[0] if single else phi
+    return (phi[0] if single else phi), plan
+
+
+def fmm_potential(z: torch.Tensor, q: torch.Tensor,
+                  cfg: FmmConfig) -> torch.Tensor:
+    """Phi(z_i) = sum_{j != i} G(z_i, x_j) for all input points (eq. 1.1),
+    plain sweeps; ``z``/``q`` (N,) or (B, N)."""
+    return _potential(z, q, cfg)[0]
+
+
+def fmm_potential_with_stats(z: torch.Tensor, q: torch.Tensor,
+                             cfg: FmmConfig):
+    """``fmm_potential`` plus the plan's ``connectivity_stats``:
+    (phi, stats)."""
+    phi, plan = _potential(z, q, cfg)
+    return phi, connectivity_stats(plan.conn)
+
+
+def fmm_potential_checked(z: torch.Tensor, q: torch.Tensor, cfg: FmmConfig,
+                          max_grow: int = 3):
+    """``fmm_potential`` with interaction-list overflow validation:
+    (phi, the config used). Builds the plan, reads its overflow (one
+    scalar to the host) and, while a list overflows, doubles
+    ``strong_cap`` with ``weak_cap=0`` (-> 4 * strong_cap), at most
+    ``max_grow`` times, before evaluating; then raises
+    ``CapOverflowError``. ``z``/``q`` (N,) or (B, N): a batch grows to
+    its worst row."""
+    single = z.dim() == 1
+    zb, qb = (z[None], q[None]) if single else (z, q)
+    for _ in range(max_grow + 1):
+        plan = fmm_build(zb, qb, cfg)
+        if int(plan.conn.overflow.max()) == 0:
+            phi = unsort(fmm_evaluate(plan, cfg), plan.tree.perm)
+            return (phi[0] if single else phi), cfg
+        cfg = dataclasses.replace(cfg, strong_cap=2 * cfg.strong_cap,
+                                  weak_cap=0)
+    raise CapOverflowError(
+        f"interaction lists overflow even at strong_cap={cfg.strong_cap}")
 
 
 def plan_from_numpy(tree_arrays, conn_arrays, cfg: FmmConfig,

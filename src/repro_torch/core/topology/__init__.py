@@ -9,14 +9,16 @@
   rounding.py      the exactly rounded hypot / fma / sqrt the lists'
                    bit parity with the JAX reference rests on
 """
-from .tree import (LeafLayout, Tree, build_tree, leaf_ids, leaf_layout,
-                   leaf_particle_index)
+from .tree import (LeafLayout, Tree, build_tree, build_tree_lexsort,
+                   leaf_ids, leaf_layout, leaf_particle_index,
+                   leaf_particle_index_loop)
 from .connectivity import (MARGIN_CLASSES, Connectivity, build_connectivity,
-                           leaf_classify_reference)
+                           connectivity_stats, leaf_classify_reference)
 
 __all__ = [
-    "Tree", "build_tree", "leaf_ids", "leaf_particle_index", "LeafLayout",
+    "Tree", "build_tree", "build_tree_lexsort", "leaf_ids",
+    "leaf_particle_index", "leaf_particle_index_loop", "LeafLayout",
     "leaf_layout",
     "Connectivity", "MARGIN_CLASSES", "build_connectivity",
-    "leaf_classify_reference",
+    "connectivity_stats", "leaf_classify_reference",
 ]

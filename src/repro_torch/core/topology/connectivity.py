@@ -247,3 +247,41 @@ def build_connectivity(tree: Tree, cfg: FmmConfig,
     return Connectivity(strong=tuple(strong), weak=tuple(weak),
                         p2p=p2p, p2l=p2l, m2p=m2p,
                         overflow=_overflow_of(margins), margins=margins)
+
+
+def connectivity_stats(conn: Connectivity) -> dict:
+    """Interaction counts per phase (the paper's Table 5.1 analysis), the
+    reference's keys: ``m2l_pairs``, ``p2p_pairs``, ``p2l_pairs``,
+    ``m2p_pairs`` (occupied list entries), ``strong_max``/``weak_max``
+    (the fullest row of any level), ``overflow`` and ``margins`` (per
+    ``MARGIN_CLASSES``).
+
+    The whole ``Connectivity`` goes to the host in ONE transfer (every
+    field flattened into one device tensor), then numpy counts. For a
+    B = 1 plan this is the reference's dict. For B > 1 the pair counts
+    are summed over the B problems, ``strong_max``/``weak_max`` and
+    ``overflow`` are the largest over the problems and ``margins`` the
+    smallest per class (the reduction of ``solver.host_health``).
+    """
+    fields = list(conn.strong) + list(conn.weak) + [
+        conn.p2p, conn.p2l, conn.m2p, conn.overflow, conn.margins]
+    flat = torch.cat([f.reshape(-1).to(torch.int32) for f in fields])
+    host = flat.cpu().numpy()
+    parts, at = [], 0
+    for f in fields:
+        parts.append(host[at:at + f.numel()].reshape(tuple(f.shape)))
+        at += f.numel()
+    nl = len(conn.strong)
+    strong, weak = parts[:nl], parts[nl:2 * nl]
+    p2p, p2l, m2p, overflow, margins = parts[2 * nl:]
+    margins = margins.reshape(-1, len(MARGIN_CLASSES)).min(axis=0)
+    return {
+        "m2l_pairs": int(sum(int((w >= 0).sum()) for w in weak)),
+        "p2p_pairs": int((p2p >= 0).sum()),
+        "p2l_pairs": int((p2l >= 0).sum()),
+        "m2p_pairs": int((m2p >= 0).sum()),
+        "strong_max": max(int((s >= 0).sum(-1).max()) for s in strong),
+        "weak_max": max(int((w >= 0).sum(-1).max()) for w in weak),
+        "overflow": int(overflow.max()),
+        "margins": {c: int(m) for c, m in zip(MARGIN_CLASSES, margins)},
+    }

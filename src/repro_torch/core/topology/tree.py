@@ -19,7 +19,8 @@ permutation and deterministic on CUDA too).
 Every tensor carries a leading problem axis B: B problems of one config
 are one build. The result is bit-identical to ``repro.core.topology.
 build_tree`` for each problem — the box radii use ``rounding.hypot_xla``
-to copy the reference's roundings.
+to copy the reference's roundings — and to ``build_tree_lexsort``, the
+seed build of one lexicographic sort a split, kept as its oracle.
 """
 from __future__ import annotations
 
@@ -158,6 +159,56 @@ def _level_geometry(xs: torch.Tensor, ys: torch.Tensor, cfg: FmmConfig):
     return tuple(centers), tuple(radii)
 
 
+def _seg_minmax(v: torch.Tensor, sid: torch.Tensor, nseg: int):
+    """Per-segment min and max of (B, N) values over the static (N,)
+    segment ids (an empty segment reads +inf / -inf)."""
+    idx = sid.expand_as(v)
+    shape = (v.shape[0], nseg)
+    mn = torch.full(shape, float("inf"), dtype=v.dtype, device=v.device)
+    mx = torch.full(shape, float("-inf"), dtype=v.dtype, device=v.device)
+    return (mn.scatter_reduce_(-1, idx, v, "amin", include_self=False),
+            mx.scatter_reduce_(-1, idx, v, "amax", include_self=False))
+
+
+def build_tree_lexsort(z: torch.Tensor, q: torch.Tensor,
+                       cfg: FmmConfig) -> Tree:
+    """The seed build, one full lexicographic sort (segment, then the
+    split coordinate) per split, kept as the parity oracle of
+    ``build_tree``: the twin of ``repro.core.topology.build_tree_lexsort``
+    on (B, N) problems."""
+    cdt = cfg.torch_complex
+    z = z.to(cdt)
+    q = q.to(cdt)
+    x = z.real.contiguous()
+    y = z.imag.contiguous()
+    B, N = x.shape
+    dev = x.device
+    perm = torch.arange(N, device=dev).expand(B, N).contiguous()
+    sb = split_bounds(N, 2 * cfg.nlevels)
+    for s in range(2 * cfg.nlevels):
+        sid = _const(segment_ids(sb[s]), dev)
+        xmn, xmx = _seg_minmax(x, sid, 2**s)
+        ymn, ymx = _seg_minmax(y, sid, 2**s)
+        split_x = (xmx - xmn) >= (ymx - ymn)
+        coord = torch.where(torch.gather(split_x, -1, sid.expand(B, N)), x, y)
+        # stable sort by coordinate, then stable by segment: lexicographic
+        by_coord = torch.argsort(coord, dim=-1, stable=True)
+        order = torch.gather(by_coord, -1, torch.argsort(
+            sid[by_coord], dim=-1, stable=True))
+        x, y, perm = (torch.gather(a, -1, order) for a in (x, y, perm))
+
+    centers, radii = [], []
+    for l, lb in enumerate(level_bounds(cfg)):
+        sid = _const(segment_ids(lb), dev)
+        xmn, xmx = _seg_minmax(x, sid, 4**l)
+        ymn, ymx = _seg_minmax(y, sid, 4**l)
+        centers.append(torch.complex(0.5 * (xmn + xmx), 0.5 * (ymn + ymx)))
+        radii.append(0.5 * hypot_xla(xmx - xmn, ymx - ymn))
+    return Tree(perm=perm, z=torch.complex(x, y),
+                q=torch.gather(q, -1, perm), centers=tuple(centers),
+                radii=tuple(radii))
+
+
 class LeafLayout(NamedTuple):
     """The static dense leaf layout of one (N, nlevels) on one device."""
 
@@ -198,6 +249,17 @@ def leaf_particle_index(cfg: FmmConfig) -> np.ndarray:
     col = np.arange(n_max, dtype=np.int64)
     idx = lb[:-1, None] + col[None, :]
     return np.where(col[None, :] < sizes[:, None], idx, -1).astype(np.int32)
+
+
+def leaf_particle_index_loop(cfg: FmmConfig) -> np.ndarray:
+    """The seed O(4**L) loop construction of ``leaf_particle_index``,
+    kept as its parity oracle."""
+    lb = level_bounds(cfg)[-1]
+    sizes = np.diff(lb)
+    idx = np.full((len(sizes), int(sizes.max())), -1, dtype=np.int32)
+    for b in range(len(sizes)):
+        idx[b, :sizes[b]] = np.arange(lb[b], lb[b + 1], dtype=np.int32)
+    return idx
 
 
 def leaf_ids(cfg: FmmConfig) -> np.ndarray:

@@ -1,3 +1,3 @@
-from .synthetic import particles, particles_numpy
+from .synthetic import particles, particles_numpy, ragged_requests
 
-__all__ = ["particles", "particles_numpy"]
+__all__ = ["particles", "particles_numpy", "ragged_requests"]

@@ -17,6 +17,10 @@ failed:
                        cannot use (no CUDA card); there is no silent
                        fall-back to the CPU
 
+and one warning, ``BackendDowngradeWarning``: an entry point dispatches
+another backend than the one asked for (``apply_batched`` on a
+``batched_dispatch="fallback"`` backend).
+
 The reference's guard and serving errors arrive with the port of
 ``solver/guard.py`` and ``serve/``.
 
@@ -69,3 +73,9 @@ class NonFiniteOutputError(FmmError, ArithmeticError):
 class DeviceUnavailableError(FmmError, RuntimeError):
     """The requested device is not usable in this process (e.g. the
     default ``cuda`` device on a machine without a CUDA card)."""
+
+
+class BackendDowngradeWarning(RuntimeWarning):
+    """A solver entry point dispatches a different backend than requested
+    (e.g. ``apply_batched`` on a ``batched_dispatch="fallback"`` backend
+    runs the "reference" hooks): same answer, other timings."""

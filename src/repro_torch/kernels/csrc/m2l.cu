@@ -15,9 +15,14 @@
 // against ~0.3 KB of operands (a multipole row, two centers, a radius).
 //
 // Design:
-// 1. A block owns a tile of TB = 128 / (p+1) target boxes (7 at p = 17).
-//    Each warp loads whole weak rows, coalesced, and compacts the
-//    occupied slots in slot order with a ballot: no per-slot list load.
+// 1. A block owns a tile of TB = 128 / (p+1) target boxes (7 at p = 17)
+//    and walks their weak rows in chunks of WC slots (512 at p = 17; a
+//    tile stages at most LIST_SLOTS indices), so shared memory does not
+//    grow with the weak-list width W and any W runs. Per chunk each warp
+//    loads its boxes' slots, coalesced, and compacts the occupied ones in
+//    slot order with a ballot: no per-slot list load. A chunk that no box
+//    of the tile occupies costs that pass and one barrier, no rounds.
+//    Where W <= WC there is one chunk (the default weak_cap, 128).
 // 2. Rounds of CEB entries per box: the block computes r, rho_s/r and
 //    -rho_t/r from the (B, NB) centers and radii (no per-slot ratio
 //    planes in device memory), and each entry's p+1 powers of both
@@ -35,7 +40,8 @@
 //    across fragment rows; f32 stays on FFMA (TF32 would break the f32
 //    accuracy bound).
 // 4. Post-scaling and reduction in registers: thread (box, l) adds each
-//    entry's b^_l (-rho_t/r)^l in slot order and stores out_l once. The
+//    entry's b^_l (-rho_t/r)^l in slot order (chunks come in slot order,
+//    so the chunking does not change any sum) and stores out_l once. The
 //    order of every sum is fixed, there are no atomics: results are
 //    bitwise reproducible and a problem's row of a batch equals its own
 //    apply. Empty boxes, the root-only case and the ragged last tile
@@ -46,25 +52,32 @@ constexpr int THREADS = 128;
 constexpr int CEB = 8;         // entries of each box staged per round
 constexpr int PFIX = 18;       // p = 17, the default config
 constexpr int PMAX = 64;       // TB >= 2
+constexpr int LIST_SLOTS = 3584;  // weak-list slots a tile stages at once
 
 template <typename T> struct alignas(2 * sizeof(T)) Cx { T r, i; };
 
 // Shared-memory geometry of one block (host and device agree on it).
 struct Geo {
-  int TB, RS, BS;
+  int TB, RS, BS, WC;
   __host__ __device__ Geo(int P) {
     TB = THREADS / P;
     RS = P + (P & 1);          // complex row stride: even, so f32 rows are
                                // 16-byte aligned
     BS = CEB * RS + 2;         // box stride: shifts boxes by 16 bytes
-  }                            // of banks (no conflicts between boxes)
+                               // of banks (no conflicts between boxes)
+    WC = LIST_SLOTS / TB / 32 * 32;   // weak-row chunk: whole warp passes
+    WC = WC < 32 ? 32 : WC > 512 ? 512 : WC;
+  }
+  // Slots of a box staged per chunk of a W-wide row.
+  __host__ __device__ int chunk(int W) const { return W < WC ? W : WC; }
 };
 
 static size_t smem_bytes(size_t elem, int P, int W) {
   const Geo g(P);
   return 2 * elem * (size_t)(2 * g.TB * g.BS + g.TB * CEB)   // a^, powers, log
          + elem * (size_t)(P * P)                            // H (generic)
-         + sizeof(int32_t) * (size_t)(g.TB * W + g.TB);      // lists, counts
+         // one chunk of each box's weak row, and the box's count in it
+         + sizeof(int32_t) * (size_t)(g.TB * (g.chunk(W) + 1));
 }
 
 // Complex c = a (x + i y) from real (a_r, a_i) and (x, y).
@@ -144,110 +157,120 @@ __global__ void __launch_bounds__(THREADS) m2l_kernel(
   Cx<T>* s_post = s_pre + g.TB * g.BS;                  // (-rho_t/r)^l
   Cx<T>* s_log = s_post + g.TB * g.BS;                  // a_0 log r
   T* s_h = reinterpret_cast<T*>(s_log + g.TB * CEB);
+  const int WC = g.chunk(W);
   int32_t* s_src = reinterpret_cast<int32_t*>(s_h + P * P);
-  int32_t* s_cnt = s_src + g.TB * W;
+  int32_t* s_cnt = s_src + g.TB * WC;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long long b = blockIdx.y;
   const int box0 = blockIdx.x * g.TB;
   const int nbox = min(g.TB, NB - box0);
 
-  // 1. Compact each box's occupied weak slots, in slot order.
-  for (int bb = warp; bb < g.TB; bb += THREADS / 32) {
-    int cnt = 0;
-    if (bb < nbox) {
-      const int32_t* wrow = weak + (b * NB + box0 + bb) * (long long)W;
-      for (int s0 = 0; s0 < W; s0 += 32) {
-        const int src = s0 + lane < W ? wrow[s0 + lane] : -1;
-        const unsigned m = __ballot_sync(0xffffffffu, src >= 0);
-        if (src >= 0)
-          s_src[bb * W + cnt + __popc(m & ((1u << lane) - 1u))] = src;
-        cnt += __popc(m);
-      }
-    }
-    if (lane == 0) s_cnt[bb] = cnt;
-  }
-  if (PF == 0)
-    for (int i = tid; i < P * P; i += THREADS) s_h[i] = h[i];
-  __syncthreads();
-
-  int most = 0;
-  for (int bb = 0; bb < nbox; ++bb) most = max(most, s_cnt[bb]);
-  const int rounds = (most + CEB - 1) / CEB;
-
   // Output role: thread (obox, l) owns out_l of box obox.
   const int obox = tid / P, l = tid - obox * P;
   const bool owner = obox < nbox;
-  const int ocnt = owner ? s_cnt[obox] : 0;
   T hreg[PF > 0 ? PF : 1];
   if constexpr (PF > 0) {
 #pragma unroll
     for (int k = 0; k < PF; ++k) hreg[k] = owner ? h[l * PF + k] : T(0);
   }
+  if (PF == 0)                 // read after the first chunk's barrier
+    for (int i = tid; i < P * P; i += THREADS) s_h[i] = h[i];
   T accr = T(0), acci = T(0);
 
-  for (int r = 0; r < rounds; ++r) {
-    const int e0 = r * CEB;
-    // 2. Stage: per entry the pre-scaled row and the post-scale powers.
-    for (int u = tid; u < 2 * g.TB * CEB; u += THREADS) {
-      const bool post = u >= g.TB * CEB;
-      const int v = post ? u - g.TB * CEB : u;
-      const int bb = v / CEB, jj = v - bb * CEB;
-      if (bb >= nbox || e0 + jj >= s_cnt[bb]) continue;
-      const long long trow = b * NB + box0 + bb;
-      const long long srow = b * NB + s_src[bb * W + e0 + jj];
-      const T rr = Rn<T>::sub(cr[trow], cr[srow]);   // r = c_t - c_s
-      const T ri = Rn<T>::sub(ci[trow], ci[srow]);
-      T wr, wi;
-      ratio(post ? -rho[trow] : rho[srow], rr, ri, wr, wi);
-      Cx<T>* dst = (post ? s_post : s_pre) + bb * g.BS + jj * g.RS;
-      T pr = T(1), pi = T(0);
-      if (post) {
-#pragma unroll 6
-        for (int k = 0; k < P; ++k) {
-          dst[k] = Cx<T>{pr, pi};
-          const Cx<T> nx = cmul(pr, pi, wr, wi);
-          pr = nx.r;
-          pi = nx.i;
-        }
-      } else {
-        const T* a_r = ar + srow * P;
-        const T* a_i = ai + srow * P;
-#pragma unroll 6
-        for (int k = 0; k < P; ++k) {
-          dst[k] = cmul(a_r[k], a_i[k], pr, pi);
-          const Cx<T> nx = cmul(pr, pi, wr, wi);
-          pr = nx.r;
-          pi = nx.i;
-        }
-        if (LOG) {                             // a_0 log r
-          const T lr = T(0.5) * log(rr * rr + ri * ri);
-          const T li = atan2(ri, rr);
-          s_log[bb * CEB + jj] = cmul(a_r[0], a_i[0], lr, li);
+  for (int c0 = 0; c0 < W; c0 += WC) {
+    const int c1 = min(W, c0 + WC);
+    // 1. Compact each box's occupied slots of this chunk, in slot order.
+    int any = 0;
+    for (int bb = warp; bb < g.TB; bb += THREADS / 32) {
+      int cnt = 0;
+      if (bb < nbox) {
+        const int32_t* wrow = weak + (b * NB + box0 + bb) * (long long)W;
+        for (int s0 = c0; s0 < c1; s0 += 32) {
+          const int src = s0 + lane < c1 ? wrow[s0 + lane] : -1;
+          const unsigned m = __ballot_sync(0xffffffffu, src >= 0);
+          if (src >= 0)
+            s_src[bb * WC + cnt + __popc(m & ((1u << lane) - 1u))] = src;
+          cnt += __popc(m);
         }
       }
+      if (lane == 0) s_cnt[bb] = cnt;
+      any |= cnt;
     }
-    __syncthreads();
-    // 3.-4. Product, post-scale and slot-order sum of this round.
-    if (owner) {
-      const int ne = min(CEB, ocnt - e0);
-      const Cx<T>* pre = s_pre + obox * g.BS;
-      const Cx<T>* pst = s_post + obox * g.BS;
-      for (int jj = 0; jj < ne; ++jj) {
-        T br, bi;
-        row_dot<T, PF>(pre + jj * g.RS, PF > 0 ? hreg : nullptr,
-                       s_h + l * P, P, br, bi);
-        const Cx<T> w = pst[jj * g.RS + l];
-        accr += br * w.r - bi * w.i;
-        acci += br * w.i + bi * w.r;
-        if (LOG && l == 0) {
-          const Cx<T> lg = s_log[obox * CEB + jj];
-          accr += lg.r;
-          acci += lg.i;
+    // A chunk that no box occupies ends at this barrier for every thread
+    // (nothing was staged, nothing reads the counts).
+    if (!__syncthreads_or(any)) continue;
+
+    // rounds >= 1 here: the counts and lists of this chunk are read
+    // before the last round's closing barrier, the next chunk writes
+    // them after it.
+    int most = 0;
+    for (int bb = 0; bb < nbox; ++bb) most = max(most, s_cnt[bb]);
+    const int rounds = (most + CEB - 1) / CEB;
+    const int ocnt = owner ? s_cnt[obox] : 0;
+    for (int r = 0; r < rounds; ++r) {
+      const int e0 = r * CEB;
+      // 2. Stage: per entry the pre-scaled row and the post-scale powers.
+      for (int u = tid; u < 2 * g.TB * CEB; u += THREADS) {
+        const bool post = u >= g.TB * CEB;
+        const int v = post ? u - g.TB * CEB : u;
+        const int bb = v / CEB, jj = v - bb * CEB;
+        if (bb >= nbox || e0 + jj >= s_cnt[bb]) continue;
+        const long long trow = b * NB + box0 + bb;
+        const long long srow = b * NB + s_src[bb * WC + e0 + jj];
+        const T rr = Rn<T>::sub(cr[trow], cr[srow]);   // r = c_t - c_s
+        const T ri = Rn<T>::sub(ci[trow], ci[srow]);
+        T wr, wi;
+        ratio(post ? -rho[trow] : rho[srow], rr, ri, wr, wi);
+        Cx<T>* dst = (post ? s_post : s_pre) + bb * g.BS + jj * g.RS;
+        T pr = T(1), pi = T(0);
+        if (post) {
+#pragma unroll 6
+          for (int k = 0; k < P; ++k) {
+            dst[k] = Cx<T>{pr, pi};
+            const Cx<T> nx = cmul(pr, pi, wr, wi);
+            pr = nx.r;
+            pi = nx.i;
+          }
+        } else {
+          const T* a_r = ar + srow * P;
+          const T* a_i = ai + srow * P;
+#pragma unroll 6
+          for (int k = 0; k < P; ++k) {
+            dst[k] = cmul(a_r[k], a_i[k], pr, pi);
+            const Cx<T> nx = cmul(pr, pi, wr, wi);
+            pr = nx.r;
+            pi = nx.i;
+          }
+          if (LOG) {                             // a_0 log r
+            const T lr = T(0.5) * log(rr * rr + ri * ri);
+            const T li = atan2(ri, rr);
+            s_log[bb * CEB + jj] = cmul(a_r[0], a_i[0], lr, li);
+          }
         }
       }
+      __syncthreads();
+      // 3.-4. Product, post-scale and slot-order sum of this round.
+      if (owner) {
+        const int ne = min(CEB, ocnt - e0);
+        const Cx<T>* pre = s_pre + obox * g.BS;
+        const Cx<T>* pst = s_post + obox * g.BS;
+        for (int jj = 0; jj < ne; ++jj) {
+          T br, bi;
+          row_dot<T, PF>(pre + jj * g.RS, PF > 0 ? hreg : nullptr,
+                         s_h + l * P, P, br, bi);
+          const Cx<T> w = pst[jj * g.RS + l];
+          accr += br * w.r - bi * w.i;
+          acci += br * w.i + bi * w.r;
+          if (LOG && l == 0) {
+            const Cx<T> lg = s_log[obox * CEB + jj];
+            accr += lg.r;
+            acci += lg.i;
+          }
+        }
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
   if (owner) {
     const long long o = (b * NB + box0 + obox) * P + l;
@@ -302,7 +325,7 @@ M2L_ENTRY(m2l_f32, float)
 M2L_ENTRY(m2l_f64, double)
 
 // Dynamic shared memory per block (bytes) of a launch at these sizes
-// (S: the weak-list width).
+// (S: the weak-list width; bounded by the chunk width WC).
 extern "C" int repro_smem_bytes(int elem, int n, int P, int S) {
   (void)n;
   return static_cast<int>(smem_bytes(elem, P, S));

@@ -12,8 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...core import expansions as E
 from ...core.config import FmmConfig
+from ...core.fmm import m2l_mat
 from .m2l import m2l_cuda
 
 
@@ -23,9 +23,9 @@ def fused_levels(cfg: FmmConfig) -> list[int]:
 
 
 def hankel(cfg: FmmConfig, device) -> torch.Tensor:
-    """The (p+1, p+1) constant M2L matrix in the config's real dtype."""
-    return torch.as_tensor(E.m2l_matrix(cfg.p), dtype=cfg.torch_real,
-                           device=device)
+    """The (p+1, p+1) constant M2L matrix in the config's real dtype
+    (built once per p, dtype and device)."""
+    return m2l_mat(cfg.p, cfg.torch_real, torch.device(device))
 
 
 def m2l_planes(mult, weak, centers, cfg: FmmConfig, rho):

@@ -22,6 +22,18 @@ registry maps names to backends:
 Every hook takes tensors with a leading problem axis B, so a backend
 serves ``apply`` (B = 1) and ``apply_batched`` alike — on "cuda", B
 problems are one launch per kernel.
+
+Each backend declares its **batched-dispatch contract**
+(``batched_dispatch``), the reference's three values read for explicit
+(B, ...) tensors instead of ``jax.vmap``:
+
+  "native"     the hooks take the (B, ...) problem axis into one kernel
+               launch each, whatever B ("cuda")
+  "vmap"       plain torch hooks that take the B axis as they are
+               ("reference"; the default for a new backend)
+  "fallback"   hooks that cannot serve a batch: ``FmmSolver`` serves
+               ``apply_batched`` through the "reference" hooks instead
+               and warns once (``errors.BackendDowngradeWarning``)
 """
 from __future__ import annotations
 
@@ -30,13 +42,20 @@ from typing import Callable, Optional
 
 import torch
 
+from ..core.config import FmmConfig
+
 
 PhaseImpl = Optional[Callable]
+
+#: Valid ``Backend.batched_dispatch`` values (module docstring).
+BATCHED_DISPATCH = ("native", "vmap", "fallback")
 
 
 @dataclasses.dataclass(frozen=True)
 class Backend:
-    """Named bundle of per-phase implementations (None -> core sweep)."""
+    """Named bundle of per-phase implementations (None -> core sweep),
+    with its batched-dispatch contract; ``supports(cfg)`` gates dispatch
+    per config."""
 
     name: str
     p2p: PhaseImpl = None
@@ -46,6 +65,16 @@ class Backend:
     p2l: PhaseImpl = None
     eval_fused: PhaseImpl = None
     leaf_classify: PhaseImpl = None
+    batched_dispatch: str = "vmap"
+
+    def __post_init__(self):
+        if self.batched_dispatch not in BATCHED_DISPATCH:
+            raise ValueError(
+                f"batched_dispatch={self.batched_dispatch!r} not in "
+                f"{BATCHED_DISPATCH}")
+
+    def supports(self, cfg: FmmConfig) -> bool:
+        return True
 
     def phase_impls(self) -> dict:
         """kwargs for ``fmm_evaluate`` selecting this backend's hooks."""
@@ -90,7 +119,8 @@ def _make_cuda() -> Backend:
     return Backend(name="cuda", p2p=p2p_apply, m2l=m2l_level_apply,
                    l2p=l2p_apply, m2l_fused=m2l_fused_apply, p2l=p2l_apply,
                    eval_fused=eval_fused_apply,
-                   leaf_classify=leaf_classify_cuda)
+                   leaf_classify=leaf_classify_cuda,
+                   batched_dispatch="native")
 
 
 register_backend(Backend(name="reference"))

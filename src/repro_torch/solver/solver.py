@@ -4,35 +4,64 @@
     phi = solver.apply(z, q)                 # one problem, (N,) -> (N,)
     phib = solver.apply_batched(zb, qb)      # (B, N) -> (B, N)
 
+Time-stepping callers (vortex methods: the particles move a little each
+step and the topology is rebuilt every step) split ``apply`` at the
+topology/evaluation seam:
+
+    plan = solver.refresh(z, q)              # tree + connectivity only
+    phi = solver.apply_plan(plan)            # upward/downward/evaluation
+
+``refresh`` + ``apply_plan`` runs exactly the calls of ``apply``, in
+its order, so their phi is bitwise ``apply``'s; in between the caller
+can read ``plan.conn.overflow`` or ``stats`` without a second build.
+
 The solver runs on ``cuda`` unless the caller passes ``device="cpu"``;
 on a machine without a CUDA card the default raises instead of falling
 back to the CPU. With the "cuda" backend each of the four kernels of the
 main path runs exactly once per ``apply`` — and once per
 ``apply_batched``, whatever B: every kernel grid carries the problems as
-an explicit axis.
+an explicit axis. ``refresh`` launches the classify kernel, and
+``apply_plan`` the M2L, P2L and fused evaluation kernels.
 
 ``apply_with_health``/``apply_checked`` return or check the health plane
 (cap margins, overflow, non-finite flags) computed beside phi.
 """
 from __future__ import annotations
 
+import warnings
 from collections import OrderedDict
+from typing import NamedTuple
 
 import numpy as np
 import torch
 from torch.profiler import record_function
 
 from ..core.config import FmmConfig
-from ..core.fmm import (HEALTH_CLASSES, Health, fmm_build, fmm_evaluate,
-                        health_of, unsort)
+from ..core.fmm import (HEALTH_CLASSES, FmmPlan, Health, fmm_build,
+                        fmm_evaluate, health_of, m2l_mat, unsort)
+from ..core.topology import connectivity_stats, leaf_layout
 from ..device import resolve_device
-from ..errors import (CapOverflowError, DTypeError, NonFiniteInputError,
-                      NonFiniteOutputError, ShapeError)
+from ..errors import (BackendDowngradeWarning, CapOverflowError, DTypeError,
+                      NonFiniteInputError, NonFiniteOutputError, ShapeError)
 from .backends import Backend, get_backend
 
-# LRU of solvers, keyed by (cfg, resolved backend name, device).
+# LRU of solvers, keyed by (cfg, resolved backend name, device), so
+# "auto" shares the entry of whatever backend it resolves to. An evicted
+# solver stays usable by whoever holds it; hit/miss/eviction traffic is
+# read with ``FmmSolver.cache_info()``.
 _CACHE: OrderedDict = OrderedDict()
 _CACHE_MAX = 64
+_CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
+
+
+class CacheInfo(NamedTuple):
+    """``FmmSolver.cache_info()`` snapshot (the functools.lru_cache idiom)."""
+
+    hits: int
+    misses: int
+    maxsize: int
+    currsize: int
+    evictions: int
 
 
 def host_health(health: Health) -> dict:
@@ -71,19 +100,48 @@ def raise_unhealthy(h: dict, cfg: FmmConfig, entry: str = "apply") -> None:
 
 class FmmSolver:
     """FMM evaluator for one ``FmmConfig``, backend and device. Prefer
-    ``FmmSolver.build``, which returns the cached instance."""
+    ``FmmSolver.build``, which returns the cached instance.
+
+    ``trace_counts`` counts, per half of the pipeline ("build": tree and
+    connectivity; "evaluate": upward, downward, evaluation), the problem
+    shapes (B, dtype, device) this solver has prepared that half for:
+    the first call at a new shape builds the device constants the half
+    reads (the static leaf layout; the M2L matrix) and later calls at
+    that shape reuse them. Eager torch compiles nothing, so this is the
+    port's counterpart of the reference's trace count: a steady-shape
+    time-stepping loop reads ``{"build": 1, "evaluate": 1}``, a new B
+    raises both. Calls are not counted.
+    """
 
     def __init__(self, cfg: FmmConfig, backend: str = "auto", device=None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.backend_name = backend
         self.backend: Backend = get_backend(backend, self.device)
+        if not self.backend.supports(cfg):
+            raise NotImplementedError(
+                f"backend {self.backend.name!r} does not support "
+                f"kernel={cfg.kernel!r}")
         self._impls = self.backend.phase_impls()
         self._topo = self.backend.topology_impls()
+        # The batched-dispatch contract (``solver.backends``): "native"
+        # and "vmap" backends serve batches through their own hooks; a
+        # "fallback" backend's batches go through the reference hooks.
+        if self.backend.batched_dispatch == "fallback":
+            ref = get_backend("reference", self.device)
+            self._batched_impls = ref.phase_impls()
+            self._batched_topo = ref.topology_impls()
+            batched_name = ref.name
+        else:
+            self._batched_impls, self._batched_topo = self._impls, self._topo
+            batched_name = self.backend.name
         # What each entry point actually runs, so timings cannot be
         # attributed to the wrong backend.
         self.dispatched = {"apply": self.backend.name,
-                           "apply_batched": self.backend.name}
+                           "apply_batched": batched_name}
+        self._warned_batched_fallback = False
+        self.trace_counts = {"build": 0, "evaluate": 0}
+        self._prepared: set = set()
 
     # -- construction -------------------------------------------------------
 
@@ -96,26 +154,69 @@ class FmmSolver:
         key = (cfg, get_backend(backend, dev).name, str(dev))
         solver = _CACHE.get(key)
         if solver is None:
+            _CACHE_STATS["misses"] += 1
             solver = _CACHE[key] = cls(cfg, backend, dev)
             while len(_CACHE) > _CACHE_MAX:
                 _CACHE.popitem(last=False)
+                _CACHE_STATS["evictions"] += 1
         else:
+            _CACHE_STATS["hits"] += 1
             _CACHE.move_to_end(key)
         return solver
 
     @classmethod
     def cache_clear(cls) -> None:
         _CACHE.clear()
+        _CACHE_STATS.update(hits=0, misses=0, evictions=0)
+
+    @classmethod
+    def cache_size(cls) -> int:
+        return len(_CACHE)
+
+    @classmethod
+    def cache_info(cls) -> CacheInfo:
+        """Hit/miss/eviction counters of the ``build`` cache."""
+        return CacheInfo(hits=_CACHE_STATS["hits"],
+                         misses=_CACHE_STATS["misses"],
+                         maxsize=_CACHE_MAX, currsize=len(_CACHE),
+                         evictions=_CACHE_STATS["evictions"])
 
     # -- the pipeline -------------------------------------------------------
 
-    def _core(self, z: torch.Tensor, q: torch.Tensor, with_health: bool):
-        """(B, N) -> (B, N) phi in input order (+ the health plane)."""
+    def _prepare(self, half: str, t: torch.Tensor) -> None:
+        """Build the device constants of ``half`` ("build" or "evaluate")
+        the first time it runs at the shape of ``t`` (B, dtype, device),
+        counting it in ``trace_counts``."""
+        key = (half, t.shape[0], t.dtype, t.device)
+        if key in self._prepared:
+            return
         cfg = self.cfg
-        plan = fmm_build(z, q, cfg, **self._topo)
-        phi = fmm_evaluate(plan, cfg, **self._impls)
+        leaf_layout(cfg.n, cfg.nlevels, t.device)      # both cached
+        if half == "evaluate":
+            m2l_mat(cfg.p, cfg.torch_real, t.device)
+        self._prepared.add(key)
+        self.trace_counts[half] += 1
+
+    def _build(self, z: torch.Tensor, q: torch.Tensor, topo: dict) -> FmmPlan:
+        self._prepare("build", z)
+        return fmm_build(z, q, self.cfg, **topo)
+
+    def _evaluate(self, plan: FmmPlan, impls: dict) -> torch.Tensor:
+        """(B, N) phi of a plan, in input order."""
+        self._prepare("evaluate", plan.tree.z)
+        phi = fmm_evaluate(plan, self.cfg, **impls)
         with record_function("fmm::unsort"):
-            phi = unsort(phi, plan.tree.perm)
+            return unsort(phi, plan.tree.perm)
+
+    def _core(self, z: torch.Tensor, q: torch.Tensor, with_health: bool,
+              batched: bool = False):
+        """(B, N) -> (B, N) phi in input order (+ the health plane):
+        ``_build`` then ``_evaluate``, the halves ``refresh`` and
+        ``apply_plan`` run."""
+        impls, topo = ((self._batched_impls, self._batched_topo) if batched
+                       else (self._impls, self._topo))
+        plan = self._build(z, q, topo)
+        phi = self._evaluate(plan, impls)
         if with_health:
             with record_function("fmm::health"):
                 return phi, health_of(plan, z, q, phi)
@@ -133,7 +234,7 @@ class FmmSolver:
 
         Trusts the caps: an input whose interaction lists exceed
         ``strong_cap``/``weak_cap`` silently drops interactions — use
-        ``apply_checked`` where inputs may drift."""
+        ``apply_checked`` where inputs may drift (or monitor ``stats``)."""
         self._validate(z, q, "apply")
         return self._core(self._to_device(z)[None], self._to_device(q)[None],
                           False)[0]
@@ -157,14 +258,20 @@ class FmmSolver:
     def apply_batched(self, z, q) -> torch.Tensor:
         """B independent problems of this config in one call: (B, N) ->
         (B, N), each row in its input order. One launch per kernel for
-        the whole batch."""
+        the whole batch on a "native" backend; a "fallback" backend's
+        batch runs the reference hooks (``dispatched["apply_batched"]``,
+        warned once per solver)."""
         self._validate_batched(z, q)
-        return self._core(self._to_device(z), self._to_device(q), False)
+        self._warn_batched_fallback()
+        return self._core(self._to_device(z), self._to_device(q), False,
+                          batched=True)
 
     def apply_batched_with_health(self, z, q):
         """``apply_batched`` plus the per-row health plane."""
         self._validate_batched(z, q)
-        return self._core(self._to_device(z), self._to_device(q), True)
+        self._warn_batched_fallback()
+        return self._core(self._to_device(z), self._to_device(q), True,
+                          batched=True)
 
     def apply_batched_checked(self, z, q) -> torch.Tensor:
         """``apply_batched`` that raises when any row is unhealthy."""
@@ -172,6 +279,50 @@ class FmmSolver:
         raise_unhealthy(host_health(health), self.cfg,
                         "apply_batched_checked")
         return phi
+
+    def _warn_batched_fallback(self) -> None:
+        if (self.dispatched["apply_batched"] != self.backend.name
+                and not self._warned_batched_fallback):
+            self._warned_batched_fallback = True
+            warnings.warn(
+                f"backend {self.backend.name!r} declares "
+                "batched_dispatch='fallback': apply_batched dispatches "
+                f"the {self.dispatched['apply_batched']!r} hooks instead "
+                "(same answer; do not attribute batched timings to "
+                f"{self.backend.name!r})", BackendDowngradeWarning,
+                stacklevel=3)
+
+    # -- the topology/evaluation seam ---------------------------------------
+
+    def refresh(self, z, q) -> FmmPlan:
+        """Rebuild tree + connectivity for one problem's (moved)
+        particles: the B = 1 plan of ``fmm_build`` with this backend's
+        topology hook (on "cuda": one classify launch). Feed it to
+        ``apply_plan``; ``plan.conn.overflow`` (one scalar) monitors cap
+        drift as the particles move."""
+        self._validate(z, q, "refresh")
+        return self._build(self._to_device(z)[None],
+                           self._to_device(q)[None], self._topo)
+
+    def apply_plan(self, plan: FmmPlan) -> torch.Tensor:
+        """Evaluate a built plan (from ``refresh``) with this backend's
+        phase hooks, in input order: (N,) for a B = 1 plan, (B, N) for a
+        plan of B problems. ``refresh`` + ``apply_plan`` is ``apply``
+        split at the topology/evaluation seam."""
+        zs = tuple(plan.tree.z.shape)
+        if len(zs) != 2 or zs[-1] != self.cfg.n:
+            raise ShapeError(f"apply_plan wants a plan of (B, {self.cfg.n})"
+                             f" particles; got {zs}")
+        phi = self._evaluate(plan, self._impls)
+        return phi[0] if zs[0] == 1 else phi
+
+    def plan(self, z, q) -> FmmPlan:
+        """Topological phase only (tree + connectivity), for inspection."""
+        return self.refresh(z, q)
+
+    def stats(self, z, q) -> dict:
+        """Connectivity stats (incl. ``overflow``) for one problem."""
+        return connectivity_stats(self.plan(z, q).conn)
 
     # -- argument validation (typed errors, repro_torch.errors) ------------
 

@@ -7,6 +7,8 @@ card: ``PYTHONPATH=src python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py`` (the shared conftest imports JAX, which the
 port does not need)."""
 import dataclasses
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -27,6 +29,17 @@ from repro_torch.kernels import (eval_fused_cuda, eval_fused_plain,
 from repro_torch.solver import FmmSolver, get_backend, register_backend
 
 pytestmark = pytest.mark.gpu
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _smoke():
+    """``chip_smoke`` (the repository root's script), for its synthetic
+    M2L operands and its particle walk."""
+    if str(ROOT) not in sys.path:
+        sys.path.insert(0, str(ROOT))
+    import chip_smoke
+    return chip_smoke
 
 
 @pytest.fixture
@@ -357,6 +370,63 @@ def test_m2l_kernel_weak_rows_with_gaps(cuda):
     assert all(torch.equal(a, b) for a, b in zip(got, packed))
     ref = m2l_plain(*spread)
     assert _rel(torch.complex(*got), torch.complex(*ref)) <= 1e-10
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("W", [7680, 12288])
+def test_m2l_kernel_takes_any_weak_width(cuda, dtype, W):
+    """Weak rows wider than one tile's shared memory could hold whole
+    (7,008 slots in f64 and 7,654 in f32 at p = 17 before the rows were
+    staged in chunks): against the plain version, twice bitwise equal,
+    empty boxes exactly 0, shared memory as at any W above a chunk."""
+    from repro_torch.kernels.build import LIBRARIES
+    smoke = _smoke()
+    args = smoke.wide_m2l_operands(W, dtype, torch)
+    got = _twice(lambda: m2l_cuda(*args))
+    ref = m2l_plain(*args)
+    tol = 1e-10 if dtype == "f64" else 2e-5
+    assert smoke.scaled_err(torch.complex(*got), torch.complex(*ref)) <= tol
+    empty = ~(args[0] >= 0).any(-1)
+    assert bool(empty.any())
+    assert bool((got[0][empty] == 0).all() and (got[1][empty] == 0).all())
+    sz = 8 if dtype == "f64" else 4
+    lib = LIBRARIES["m2l"]
+    assert lib.smem_bytes(sz, 64, 18, W) == lib.smem_bytes(sz, 64, 18, 1024)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_m2l_rows_spread_over_a_wide_row_are_bitwise_the_packed(cuda, dtype):
+    """128-wide rows spread over 12,288 slots (in slot order, -1
+    between): the chunks cut the rows but not the order of any sum."""
+    smoke = _smoke()
+    args = smoke.wide_m2l_operands(128, dtype, torch)
+    packed = m2l_cuda(*args)
+    spread = (smoke.spread_rows(args[0], 12288),) + tuple(args[1:])
+    got = _twice(lambda: m2l_cuda(*spread))
+    assert all(torch.equal(a, b) for a, b in zip(got, packed))
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_refresh_apply_plan_launches_and_is_bitwise_apply(cuda, dtype):
+    """Three steps on moved particles: refresh launches classify once,
+    apply_plan M2L, P2L and the fused evaluation once each; phi bitwise
+    apply's; prepared once per half; no overflow."""
+    smoke = _smoke()
+    cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype=dtype)
+    z, q = particles("uniform", cfg.n, 11, device=cuda)
+    solver = FmmSolver(cfg)
+    none = _main_counts(classify=0, m2l=0, p2l=0, eval_fused=0)
+    for step in range(3):
+        zk = smoke.perturbed(z, step)
+        reset_launch_counts()
+        plan = solver.refresh(zk, q)
+        assert launch_counts() == dict(none, classify=1)
+        reset_launch_counts()
+        phi = solver.apply_plan(plan)
+        assert launch_counts() == dict(none, m2l=1, p2l=1, eval_fused=1)
+        assert torch.equal(phi, solver.apply(zk, q))
+        assert solver.stats(zk, q)["overflow"] == 0
+    assert solver.trace_counts == {"build": 1, "evaluate": 1}
 
 
 def _nbody_planes(n, m, dtype, cuda, seed):
