@@ -49,19 +49,44 @@ Runs top to bottom and exits nonzero on the first failure:
    refresh and apply_plan ms (host clock ending in a synchronize,
    median of the steps after the first) beside apply's; one step on the
    per-phase backend with its launches;
-7. per-phase path: the "cuda" backend without its fused hooks,
+7. tune: ``FmmSolver.tune`` on the main path's problems from the default
+   caps, in f32 and f64: its trials, tuned caps and host time, one
+   classify launch a probe; the tuned solver's ``apply_checked``
+   launches the four main-path kernels once each and meets the accuracy
+   bound at the sampled targets; its apply ms beside the main path's;
+8. guard: (a) ``FmmSolver.build(cfg).guarded().apply_guarded`` from the
+   default caps on normal and layer particles, in f32 and f64: the walk
+   primary -> caps*... ends ok without degrading or warning, launches
+   the four kernels once a rung, meets the accuracy bound (in f64, where
+   its caps are the main path's, within F64_TOL of its phi); the walk's
+   host ms; at the final caps the promoted guard's,
+   ``apply_with_health``'s and the plain apply's ms in rounds of
+   alternating order, and one ``host_health`` read's; (b)
+   ``refresh_guarded`` + ``apply_plan`` on the layer particles: one
+   escalation that promotes, then steps on moved particles without
+   retries, refresh_guarded ms beside refresh ms and beside refresh plus
+   the guard's host read; (c) the five cases of
+   ``repro_torch.testing.faults``' smoke walk at N = 2^16, f64, "cuda":
+   each case's rungs and final backend, its launches and host ms per
+   rung through the guard's ``rung_hook`` (the degrade rung launches
+   classify and M2L only, the direct rung none), one
+   ``BackendDowngradeWarning`` for each of those two rungs, phi against
+   the f64 direct sum, a poisoned input refused;
+   the direct rung's ms beside one ``nbody_direct`` call on the same
+   particles;
+9. per-phase path: the "cuda" backend without its fused hooks,
    registered as "cuda-phases", on the same problems: M2L once per
    level, L2P and P2P once, classify and P2L once, the fused evaluation
    never; the same accuracy bounds; in f64 phi within 1e-10 of the main
    path's and the reference backend's;
-8. batched: ``apply_batched`` with B = 4 at N = 2^20 in f32 on both
+10. batched: ``apply_batched`` with B = 4 at N = 2^20 in f32 on both
    paths — the same launches as one apply, each row equal to that
    problem's ``apply``;
-9. direct baseline: ``nbody_direct`` all-pairs at N = 2^20 in f32 and
+11. direct baseline: ``nbody_direct`` all-pairs at N = 2^20 in f32 and
    f64 (one launch each, its source splits printed), timed beside the
    FMM apply, and the paper's Fig. 5.5 sweep N = 2^9 .. 2^20 with the
    break-even N;
-10. prints one JSON line with every kernel's launches, error, times and
+12. prints one JSON line with every kernel's launches, error, times and
    bound (N-body also its splits at both shapes, K, registers and SASS
    instructions a pair; M2L its wide-row times and shared memory), the
    card line again, and last
@@ -71,12 +96,14 @@ Needs one CUDA card; without one it exits nonzero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -122,6 +149,15 @@ WIDE_BOXES = (3000, 1099)
 # seam: time steps, and the step of the particles' random walk
 SEAM_STEPS = 3
 SEAM_EPS = 1e-4
+# the fault walk's size: its direct rung costs N^2 pair terms in plain
+# torch on the card (about 0.3-0.5 s at 2^16; 256 times that at 2^20)
+FAULT_N = 1 << 16
+# guard: rounds of (apply, apply_with_health, apply_guarded), the order
+# reversed every other round
+GUARD_ROUNDS = 6
+# guard: time steps of (refresh, refresh + the guard's host read,
+# refresh_guarded) on moved particles, the order rotated every step
+REFRESH_STEPS = 9
 # Fig. 5.5 sweep of the direct baseline against the FMM
 SWEEP = [1 << k for k in range(9, 21)]
 # accuracy bounds of the JAX reference's own tests
@@ -447,17 +483,6 @@ def ops_seconds(flops: float, dense: float, dt: str) -> float:
     return (flops - dense) / PEAK_FLOPS[dt] + dense / PEAK_DENSE[dt]
 
 
-def grow_caps(cfg, margins: dict):
-    """Double the caps of the classes that overflowed."""
-    import dataclasses
-    strong, weak = cfg.strong_cap, cfg.weak_cap
-    if any(margins[c] < 0 for c in ("strong", "p2p", "p2l", "m2p")):
-        strong *= 2
-    if margins["weak"] < 0:
-        weak *= 2
-    return dataclasses.replace(cfg, strong_cap=strong, weak_cap=weak)
-
-
 def capture(cfg, z, q, torch):
     """Build and evaluate one plan through the kernel hooks, raising the
     caps until no list overflows. Returns the config used, each kernel's
@@ -472,6 +497,7 @@ def capture(cfg, z, q, torch):
                                      m2l_operands, p2l_apply, p2l_operands,
                                      p2p_operands)
     from repro_torch.kernels.m2l.ops import m2l_planes
+    from repro_torch.solver.guard import grow_caps
 
     cap = {}
 
@@ -681,6 +707,7 @@ def grown_apply(solver_for, cfg, z, q, tag: str):
 
     from repro_torch.errors import CapOverflowError
     from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.solver.guard import grow_caps
 
     while True:
         solver = solver_for(cfg)
@@ -967,6 +994,301 @@ def seam_phase(dt: str, main: dict, torch) -> None:
           "apply", flush=True)
 
 
+def host_s(fn, torch):
+    """(fn(), host seconds around it, ending in a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def tune_phase(dt: str, main: dict, torch) -> None:
+    """``FmmSolver.tune`` on each distribution at the main path's size,
+    from the default caps: its trials, tuned caps and host time, one
+    classify launch per probe; then ``apply_checked`` on the tuned
+    solver: the main path's launches, the accuracy bound against the
+    main path's direct sums, its apply time beside the main path's."""
+    from repro_torch.configs import fmm_config
+    from repro_torch.core.direct import rel_error_inf
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.solver import FmmSolver
+
+    zero = {k: 0 for k in KERNELS}
+    for dist in DISTS:
+        m = main[dist]
+        tag = f"tune[{dt}/{dist}]"
+        z, q = m["z"], m["q"]
+        solver = FmmSolver.build(fmm_config(N, p=P_TERMS, dtype=dt))
+        reset_launch_counts()
+        tuned, secs = host_s(lambda: solver.tune(z, q), torch)
+        counts, res = launch_counts(), tuned.tune_result
+        probes = len(res.trials)
+        check(counts == dict(zero, classify=probes),
+              f"{tag}: launches {counts} for {probes} probes (want one "
+              "classify a probe)")
+        check(res.stats["overflow"] == 0 and res.trials[-1][2] == 0,
+              f"{tag}: tuned caps overflow: {res.trials}")
+        reset_launch_counts()
+        phi, _ = host_s(lambda: tuned.apply_checked(z, q), torch)
+        counts = launch_counts()
+        check(counts == want_counts(),
+              f"{tag}: tuned apply_checked launches {counts}")
+        err = rel_error_inf(phi[m["sample"]].to(torch.complex128),
+                            m["d_seen"])
+        check(err < ACC_BOUND[dt], f"{tag}: accuracy {err:.3e} >= "
+              f"{ACC_BOUND[dt]}")
+        apply_s = median_apply_s(tuned, z, q, phi, tag, torch)
+        print(f"{tag}: trials {res.trials}; tuned caps strong="
+              f"{tuned.cfg.strong_cap} weak={tuned.cfg.weak_cap} (tile "
+              f"fields {tuned.cfg.tile_boxes}/{tuned.cfg.stage_width}); tune "
+              f"{1e3 * secs:.1f} ms host for {probes} probes, "
+              f"{1e3 * secs / probes:.1f} ms a probe, classify launches a "
+              f"probe 1; tuned apply_checked launches {counts}, rel_err_inf "
+              f"{err:.3e}; tuned apply {1e3 * apply_s:.1f} ms (main path "
+              f"{1e3 * m['secs']:.1f} ms at caps {m['cfg'].strong_cap}/"
+              f"{m['cfg'].weak_cap})", flush=True)
+        del phi, tuned
+        torch.cuda.empty_cache()
+
+
+def guard_phase(dt: str, main: dict, torch) -> None:
+    """The guarded entry points on the real cap drift at the main path's
+    size: (a) ``apply_guarded`` from the default caps on normal and
+    layer particles walks primary -> caps*... and ends ok without
+    degrading, at the accuracy bound (in f64, at the main path's caps,
+    within F64_TOL of its phi); the host ms of the walk; at the final
+    caps the plain apply, ``apply_with_health`` and the promoted guard in
+    rounds of alternating order, and one ``host_health`` read; (b)
+    ``refresh_guarded`` + ``apply_plan`` on the layer particles: one
+    escalation that promotes, then steps on moved particles without
+    retries, refresh_guarded ms beside refresh ms and beside refresh
+    plus the guard's host read (order rotated, no plan kept between
+    timed calls)."""
+    from repro_torch.configs import fmm_config
+    from repro_torch.core.direct import rel_error_inf
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.solver import FmmSolver, host_health
+
+    cfg0 = fmm_config(N, p=P_TERMS, dtype=dt)
+    for dist in ("normal", "layer"):
+        m = main[dist]
+        tag = f"guard[{dt}/{dist}]"
+        z, q = m["z"], m["q"]
+        g = FmmSolver.build(cfg0).guarded()
+        reset_launch_counts()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            (phi, rep), walk_s = host_s(lambda: g.apply_guarded(z, q), torch)
+        counts = launch_counts()
+        check(caught == [], f"{tag}: the walk warned "
+              f"{[str(w.message) for w in caught]}")
+        rungs = [a.rung for a in rep.attempts]
+        check(rep.ok and rep.degradations == () and len(rungs) > 1
+              and rungs[0] == "primary"
+              and all(r.startswith("caps*") for r in rungs[1:]),
+              f"{tag}: {rep.summary()}")
+        want = {k: v * len(rungs) for k, v in want_counts().items()}
+        check(counts == want, f"{tag}: launches {counts} (want {want})")
+        err = rel_error_inf(phi[m["sample"]].to(torch.complex128),
+                            m["d_seen"])
+        check(err < ACC_BOUND[dt], f"{tag}: accuracy {err:.3e}")
+        note = ""
+        if dt == "f64" and g.cfg == m["cfg"]:
+            d = rel_err(phi, m["phi"])
+            check(d <= F64_TOL, f"{tag}: vs main path {d:.3e}")
+            note = f"; vs main path's phi at its caps {d:.3e}"
+        # the promoted guard beside the plain apply and apply_with_health
+        # at the final caps, in rounds of alternating order
+        solver = FmmSolver.build(g.cfg)
+        runs = {"apply": lambda: solver.apply(z, q),
+                "apply_with_health": lambda: solver.apply_with_health(z, q),
+                "apply_guarded": lambda: g.apply_guarded(z, q)}
+        times = {k: [] for k in runs}
+        for r in range(GUARD_ROUNDS):
+            for k in (list(runs) if r % 2 == 0 else list(runs)[::-1]):
+                out, secs = host_s(runs[k], torch)
+                times[k].append(secs)
+                if k == "apply_guarded":
+                    check(out[1].retries == 0 and torch.equal(out[0], phi),
+                          f"{tag}: promoted guard {out[1].summary()}")
+                elif k == "apply":
+                    check(torch.equal(out, phi), f"{tag}: apply differs")
+        _, health = solver.apply_with_health(z, q)
+        read = [host_s(lambda: host_health(health), torch)[1]
+                for _ in range(GUARD_ROUNDS)]
+        ms = {k: 1e3 * statistics.median(v) for k, v in times.items()}
+        print(f"{tag}: {rep.summary()}; caps {g.cfg.strong_cap}/"
+              f"{g.cfg.weak_cap} (main path {m['cfg'].strong_cap}/"
+              f"{m['cfg'].weak_cap}); launches {counts}; rel_err_inf "
+              f"{err:.3e}{note}; walk {1e3 * walk_s:.1f} ms; at the final "
+              f"caps (host, median of {GUARD_ROUNDS}, alternating order): "
+              f"apply {ms['apply']:.1f} ms, apply_with_health "
+              f"{ms['apply_with_health']:.1f} ms, promoted apply_guarded "
+              f"{ms['apply_guarded']:.1f} ms; host_health alone "
+              f"{1e3 * statistics.median(read):.3f} ms", flush=True)
+        del phi, out, health
+        torch.cuda.empty_cache()
+
+    m = main["layer"]
+    tag = f"guard[{dt}/refresh]"
+    z, q = m["z"], m["q"]
+    g = FmmSolver.build(cfg0).guarded()
+    reset_launch_counts()
+    (plan, rep), secs = host_s(lambda: g.refresh_guarded(z, q), torch)
+    counts = launch_counts()
+    check(rep.ok and rep.retries >= 1 and g.cfg != cfg0
+          and rep.attempts[-1].rung == f"caps*{g.cfg.strong_cap}/"
+          f"{g.cfg.weak_cap}", f"{tag}: {rep.summary()}")
+    check(counts == {k: int(k == "classify") * len(rep.attempts)
+                     for k in KERNELS}, f"{tag}: launches {counts}")
+    phi = g.apply_plan(plan)
+    check(torch.equal(phi, g.solver.apply(z, q)),
+          f"{tag}: apply_plan is not bitwise the promoted apply")
+    print(f"{tag}: {rep.summary()} in {1e3 * secs:.1f} ms; launches "
+          f"{counts}", flush=True)
+
+    def read(plan):
+        # the guard's own host read of one plan's margins and overflow
+        torch.cat([plan.conn.margins.reshape(-1),
+                   plan.conn.overflow.reshape(-1)]).tolist()
+        return plan
+
+    runs = {"refresh": lambda zk: g.solver.refresh(zk, q),
+            "refresh+read": lambda zk: read(g.solver.refresh(zk, q)),
+            "refresh_guarded": lambda zk: g.refresh_guarded(zk, q)}
+    times = {k: [] for k in (*runs, "apply_plan")}
+    del plan, phi
+    for step in range(REFRESH_STEPS):
+        zk = perturbed(z, step)
+        names = list(runs)[step % 3:] + list(runs)[:step % 3]
+        for k in names:
+            # no plan outlives its call: each timed call finds the same
+            # memory free
+            out, t = host_s(lambda: runs[k](zk), torch)
+            if k == "refresh_guarded":
+                check(out[1].ok and out[1].retries == 0,
+                      f"{tag}/step {step}: {out[1].summary()}")
+            times[k].append(t)
+            del out
+        plan, _ = g.refresh_guarded(zk, q)
+        phi, t = host_s(lambda: g.apply_plan(plan), torch)
+        times["apply_plan"].append(t)
+        check(bool(torch.isfinite(phi).all()), f"{tag}: phi not finite")
+        del plan, phi
+    ms = {k: 1e3 * statistics.median(v[1:]) for k, v in times.items()}
+    print(f"{tag}: steps on moved particles without retries; "
+          f"refresh_guarded {ms['refresh_guarded']:.2f} ms, refresh "
+          f"{ms['refresh']:.2f} ms, refresh + the guard's host read "
+          f"{ms['refresh+read']:.2f} ms, apply_plan {ms['apply_plan']:.2f} "
+          f"ms (median of steps 2-{REFRESH_STEPS}, order rotated)",
+          flush=True)
+
+
+def fault_walk(torch) -> None:
+    """The five cases of ``repro_torch.testing.faults``' smoke walk on
+    the card at N = 2^16, f64, "cuda" backend, uniform particles: each
+    case's rungs, its launches and host ms per rung (the guard's
+    ``rung_hook``; the direct rung's ms is its card cost), a
+    ``BackendDowngradeWarning`` exactly where a plain rung serves the
+    answer, phi against the f64 direct sum."""
+
+    from repro_torch.configs import fmm_config
+    from repro_torch.core.direct import direct_potential
+    from repro_torch.data import particles
+    from repro_torch.errors import (BackendDowngradeWarning,
+                                    NonFiniteInputError)
+    from repro_torch.kernels import (launch_counts, nbody_direct,
+                                     reset_launch_counts)
+    from repro_torch.solver import FmmSolver
+    from repro_torch.testing.faults import smoke_cases
+
+    cfg = fmm_config(FAULT_N, p=P_TERMS, dtype="f64")
+    z, q = particles("uniform", cfg.n, SEED)
+    oracle = direct_potential(z, z, q)
+    margins = FmmSolver.build(cfg).stats(z, q)["margins"]
+    # the strong lists overflow at cfg and fit after one doubling
+    drop = min(margins[c] for c in ("strong", "p2p", "p2l", "m2p")) + 4
+    S, W = cfg.strong_cap, cfg.weak_cap
+    zero = {k: 0 for k in KERNELS}
+    fmm = want_counts()
+    want = {
+        "healthy": (["primary"], "cuda", [fmm]),
+        "truncate->caps*2": (["primary", f"caps*{2 * S}/{W}"], "cuda",
+                             [fmm, fmm]),
+        "nan-kernel->degrade": (["primary", "degrade:cuda+ref-eval"],
+                                "cuda+ref-eval",
+                                [fmm, dict(zero, classify=1, m2l=1)]),
+        "forced-overflow->direct": (
+            ["primary", f"caps*{2 * S}/{min(2 * W, 8 * S)}", "direct"],
+            "direct", [fmm, fmm, zero]),
+    }
+    log = []
+
+    @contextlib.contextmanager
+    def per_rung(rung):
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        log.append((rung, 1e3 * (time.perf_counter() - t0), launch_counts()))
+
+    print(f"faults N={cfg.n} f64 uniform: caps {S}/{W}, margins {margins}, "
+          f"truncation drop {drop}", flush=True)
+    for case, expect, run in smoke_cases(cfg, drop=drop, rung_hook=per_rung):
+        tag = f"faults[{case}]"
+        log.clear()
+        if expect is None:
+            try:
+                run(z, q)
+            except NonFiniteInputError as e:
+                print(f"{tag}: NonFiniteInputError ({e}); primary "
+                      f"{log[0][1]:.1f} ms, launches {log[0][2]}",
+                      flush=True)
+                continue
+            check(False, f"{tag}: a poisoned input did not raise")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            phi, rep = run(z, q)
+        rungs, backend, launches = want[case]
+        got = [a.rung for a in rep.attempts]
+        check(expect in got and got == rungs and rep.ok
+              and rep.final_backend == backend,
+              f"{tag}: {rep.summary()} (want {rungs}, {backend})")
+        check([r for r, _, _ in log] == got
+              and [c for _, _, c in log] == launches,
+              f"{tag}: launches per rung {log} (want {launches})")
+        # one warning for each rung served by plain torch, naming the
+        # rung that failed before it
+        plain = [(got[i - 1], r) for i, r in enumerate(got)
+                 if r.startswith("degrade:") or r == "direct"]
+        said = [str(w.message) for w in caught
+                if issubclass(w.category, BackendDowngradeWarning)]
+        check(len(said) == len(plain)
+              and all(f"rung {f!r}" in m and f"serving from {r!r}" in m
+                      for (f, r), m in zip(plain, said)),
+              f"{tag}: downgrade warnings {said} (want one for {plain})")
+        # the smoke walk's own bounds (``faults._smoke``), normwise
+        # over all targets
+        err, tol = rel_err(phi, oracle), (F64_TOL if expect == "direct"
+                                          else 1e-6)
+        check(err <= tol, f"{tag}: vs direct {err:.3e} > {tol}")
+        per = ", ".join(f"{r} {ms:.1f} ms {c}" for r, ms, c in log)
+        print(f"{tag}: {rep.summary()}; vs direct {err:.3e}; per rung: "
+              f"{per}; {len(said)} downgrade warning(s)", flush=True)
+        if expect == "direct":
+            rung_ms = log[-1][1]
+    # the direct rung's plain sum beside the CUDA N-body kernel's
+    phi = nbody_direct(z, z, q)
+    err = scaled_err(phi[:, None], oracle[:, None])
+    check(err <= F64_TOL, f"faults: nbody_direct vs direct {err:.3e}")
+    ms = time_cuda(lambda: nbody_direct(z, z, q), 3, torch, warmup=1)
+    print(f"faults N={cfg.n}: direct rung (plain torch, host clock) "
+          f"{rung_ms:.1f} ms; nbody_direct {ms:.3f} ms (CUDA events, "
+          f"scaled_err vs the rung {err:.3e})", flush=True)
+
+
 def register_phases(torch):
     """Register the per-phase backend: "cuda" without its fused hooks."""
     import dataclasses
@@ -1026,6 +1348,7 @@ def batched_phase(cfg, torch, backend: str = "cuda") -> dict:
     from repro_torch.errors import CapOverflowError
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.solver import FmmSolver
+    from repro_torch.solver.guard import grow_caps
 
     probs = [particles(d, N, s) for d, s in
              (("uniform", 0), ("normal", 0), ("layer", 0), ("uniform", 1))]
@@ -1201,6 +1524,11 @@ def main() -> int:
     register_phases(torch)
     for dt in ("f32", "f64"):
         seam_phase(dt, served[dt], torch)
+    for dt in ("f32", "f64"):
+        tune_phase(dt, served[dt], torch)
+    for dt in ("f32", "f64"):
+        guard_phase(dt, served[dt], torch)
+    fault_walk(torch)
     for dt in ("f32", "f64"):
         totals = per_phase_path(dt, served[dt], torch)
         print(f"phases[{dt}]: launches {totals}", flush=True)

@@ -13,6 +13,8 @@ failed:
                        trusting anything computed from it
   NonFiniteOutputError phi contains NaN/Inf on finite input — a kernel
                        or expansion bug
+  RecoveryExhaustedError  every rung of the guarded-execution ladder
+                       (``repro_torch.solver.guard``) failed
   DeviceUnavailableError  the solver was asked for a device this process
                        cannot use (no CUDA card); there is no silent
                        fall-back to the CPU
@@ -21,8 +23,7 @@ and one warning, ``BackendDowngradeWarning``: an entry point dispatches
 another backend than the one asked for (``apply_batched`` on a
 ``batched_dispatch="fallback"`` backend).
 
-The reference's guard and serving errors arrive with the port of
-``solver/guard.py`` and ``serve/``.
+The reference's serving errors arrive with the port of ``serve/``.
 
 The classes multiply-inherit the builtin a plain implementation would
 raise (``ValueError`` for validation, ``RuntimeError`` for overflow), so
@@ -68,6 +69,16 @@ class NonFiniteInputError(FmmError, ValueError):
 
 class NonFiniteOutputError(FmmError, ArithmeticError):
     """phi contains NaN/Inf on finite input (kernel/expansion fault)."""
+
+
+class RecoveryExhaustedError(FmmError, RuntimeError):
+    """Every rung of the guarded-execution ladder failed.
+
+    Carries ``report`` — the ``GuardReport`` of the failed walk."""
+
+    def __init__(self, message: str, *, report=None):
+        super().__init__(message)
+        self.report = report
 
 
 class DeviceUnavailableError(FmmError, RuntimeError):

@@ -40,9 +40,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
-import torch
-
 from ..core.config import FmmConfig
+from ..device import resolve_device
 
 
 PhaseImpl = Optional[Callable]
@@ -100,9 +99,11 @@ def available_backends() -> list[str]:
     return sorted(_REGISTRY) + ["auto"]
 
 
-def get_backend(name: str, device: torch.device) -> Backend:
-    """Resolve a backend name; "auto" picks by ``device``."""
+def get_backend(name: str, device=None) -> Backend:
+    """Resolve a backend name; "auto" picks by ``device`` (only "auto"
+    reads it; ``None`` is the CUDA card, as for every entry point)."""
     if name == "auto":
+        device = resolve_device(device)
         return _REGISTRY["cuda" if device.type == "cuda" else "reference"]
     try:
         return _REGISTRY[name]

@@ -25,12 +25,17 @@ an explicit axis. ``refresh`` launches the classify kernel, and
 
 ``apply_with_health``/``apply_checked`` return or check the health plane
 (cap margins, overflow, non-finite flags) computed beside phi.
+
+    solver = solver.tune(z_sample)           # fit the list caps
+    guarded = solver.guarded()               # the recovery ladder
+    phi, report = guarded.apply_guarded(z, q)
 """
 from __future__ import annotations
 
+import copy
 import warnings
 from collections import OrderedDict
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -43,6 +48,7 @@ from ..core.topology import connectivity_stats, leaf_layout
 from ..device import resolve_device
 from ..errors import (BackendDowngradeWarning, CapOverflowError, DTypeError,
                       NonFiniteInputError, NonFiniteOutputError, ShapeError)
+from .autotune import TuneResult, tune_caps, tune_tiles
 from .backends import Backend, get_backend
 
 # LRU of solvers, keyed by (cfg, resolved backend name, device), so
@@ -142,6 +148,7 @@ class FmmSolver:
         self._warned_batched_fallback = False
         self.trace_counts = {"build": 0, "evaluate": 0}
         self._prepared: set = set()
+        self.tune_result: Optional[TuneResult] = None
 
     # -- construction -------------------------------------------------------
 
@@ -323,6 +330,50 @@ class FmmSolver:
     def stats(self, z, q) -> dict:
         """Connectivity stats (incl. ``overflow``) for one problem."""
         return connectivity_stats(self.plan(z, q).conn)
+
+    def guarded(self, **kwargs) -> "GuardedSolver":  # noqa: F821
+        """This solver's config, backend and device behind the recovery
+        ladder (``repro_torch.solver.guard.GuardedSolver``); keyword
+        arguments go to ``GuardedSolver``."""
+        from .guard import GuardedSolver  # local: guard imports solver
+        return GuardedSolver(self.cfg, self.backend_name, device=self.device,
+                             **kwargs)
+
+    # -- autotuning ---------------------------------------------------------
+
+    def tune(self, z_sample, q_sample=None, *, margin: float = 1.25,
+             round_to: int = 8, max_grow: int = 6, tiles: bool = True,
+             tile_timer=None) -> "FmmSolver":
+        """Fit ``strong_cap``/``weak_cap`` (and the reference's tile
+        fields) to a workload sample on this solver's device, probing
+        through its backend's topology hook (on "cuda": the classify
+        kernel, one launch a probe and row).
+
+        ``z_sample`` may be (N,) or (B, N) — a batch tunes the shared cap
+        budget to its worst row. With ``tiles=True`` the tile fields are
+        set at the tuned caps to the reference's heuristic
+        (``autotune.tune_tiles``); a ``tile_timer`` raises
+        ``NotImplementedError``, since no CUDA kernel reads those fields.
+        Returns a copy of the cached solver for the tuned config with
+        ``tune_result`` attached.
+        """
+        result = tune_caps(z_sample, q_sample, self.cfg, margin=margin,
+                           round_to=round_to, max_grow=max_grow,
+                           topology_impls=self._topo, device=self.device)
+        if tiles:
+            tiled_cfg, tile_trials = tune_tiles(
+                z_sample, q_sample, result.cfg, backend=self.backend_name,
+                timer=tile_timer, device=self.device)
+            result = result._replace(cfg=tiled_cfg,
+                                     tile_trials=tuple(tile_trials))
+        # Shallow copy: shares the cached solver's prepared constants but
+        # carries this caller's tune_result.
+        tuned = copy.copy(FmmSolver.build(result.cfg, self.backend_name,
+                                          self.device))
+        result = result._replace(
+            dispatched=tuple(sorted(tuned.dispatched.items())))
+        tuned.tune_result = result
+        return tuned
 
     # -- argument validation (typed errors, repro_torch.errors) ------------
 

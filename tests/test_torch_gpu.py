@@ -1,7 +1,8 @@
 """PyTorch port on the CUDA card: each kernel against its plain version
 on the same CUDA tensors, launch counts per kernel per apply on the main
-path and on the per-phase path, and the solver's cuda-vs-reference
-parity. Marked ``gpu``: skipped (inside a fixture,
+path and on the per-phase path, the solver's cuda-vs-reference parity,
+and the guard (its fault walk, a failing launch propagating) and tune on
+the card. Marked ``gpu``: skipped (inside a fixture,
 never at import) where no CUDA card is present. On the machine with the
 card: ``PYTHONPATH=src python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py`` (the shared conftest imports JAX, which the
@@ -534,3 +535,101 @@ def test_l2p_kernel_leaf_widths_and_batch(cuda, dtype, n, p, offset):
     assert bool((got[0][:, pad] == 0).all() and (got[1][:, pad] == 0).all())
     tol = 1e-10 if dtype == "f64" else 1e-5
     assert _rel(torch.complex(*got), torch.complex(*ref)) <= tol
+
+
+def test_fault_walk_on_the_card(cuda, monkeypatch):
+    """``chip_smoke``'s fault walk (the five cases of
+    ``repro_torch.testing.faults``) at N = 2^14, f64, "cuda": each case's
+    rungs and final backend as the CPU parity tests hold them, the four
+    kernels once a FMM rung, classify and M2L only in the degrade rung,
+    none in the direct rung (counted through the guard's ``rung_hook``),
+    one ``BackendDowngradeWarning`` for each of those two rungs, a
+    poisoned input refused."""
+    smoke = _smoke()
+    monkeypatch.setattr(smoke, "FAULT_N", 1 << 14)
+    smoke.fault_walk(torch)
+
+
+@pytest.mark.parametrize("case", ["nan", "overflow"])
+def test_plain_rungs_warn_on_the_card(cuda, case):
+    """On the card a rung that serves the answer from plain torch (the
+    degrade rung, the direct rung) warns, naming the rung that failed
+    and why; the report names the rung too."""
+    from repro_torch.errors import BackendDowngradeWarning
+    from repro_torch.solver import GuardedSolver
+    from repro_torch.testing import force_cap_overflow, nan_coefficients
+
+    cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype="f64")
+    z, q = particles("uniform", cfg.n, 2, device=cuda)
+    if case == "nan":
+        fault = nan_coefficients("cuda", "eval_fused")
+        rung = "degrade:cuda+ref-eval"
+        why = r"rung 'primary' on 'cuda' failed \(non-finite output\)"
+    else:
+        fault = force_cap_overflow(strong=1, weak=1)
+        rung = "direct"
+        why = r"rung 'caps\*\d+/\d+' on 'cuda' failed \(overflow \d+\)"
+    with fault, pytest.warns(BackendDowngradeWarning, match=why) as rec:
+        g = GuardedSolver(cfg, max_cap_doublings=1)
+        phi, rep = g.apply_guarded(z, q)
+    assert rep.ok and rep.final_rung == rung and rep.degradations == (rung,)
+    msgs = [str(w.message) for w in rec
+            if issubclass(w.category, BackendDowngradeWarning)]
+    assert len(msgs) == 1 and f"serving from {rung!r}" in msgs[0]
+    assert phi.device.type == "cuda" and bool(torch.isfinite(phi).all())
+
+
+@pytest.mark.parametrize("name", ["classify", "m2l", "p2l", "eval_fused"])
+def test_kernel_launch_error_propagates_out_of_apply_guarded(cuda,
+                                                              monkeypatch,
+                                                              name):
+    """A kernel whose launch fails is not a rung: the error leaves
+    ``apply_guarded`` as it leaves ``apply``, with no walk to the plain
+    sweeps or to the direct sum."""
+    from repro_torch.errors import FmmError
+    from repro_torch.kernels.build import LIBRARIES
+    from repro_torch.solver import GuardedSolver
+
+    def failing(symbol, *args):
+        raise RuntimeError(f"{name}:{symbol} launch failed: injected "
+                           "(cudaError 700)")
+
+    cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype="f64")
+    z, q = particles("normal", cfg.n, 2, device=cuda)
+    g = GuardedSolver(cfg)
+    assert g.device.type == "cuda" and g.solver.dispatched["apply"] == "cuda"
+    monkeypatch.setattr(LIBRARIES[name], "launch", failing)
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="launch failed") as ei:
+        g.apply_guarded(z, q)
+    assert not isinstance(ei.value, FmmError)
+    assert launch_counts()["nbody"] == 0
+
+
+@pytest.mark.parametrize("dist", ["uniform", "normal"])
+def test_tune_and_guard_on_the_card(cuda, dist):
+    """``tune`` probes with one classify launch each; the tuned solver
+    and the guard's escalated one launch the four kernels once an apply
+    and match the reference backend's phi within 1e-10 (f64)."""
+    cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype="f64")
+    z, q = particles(dist, cfg.n, 4, device=cuda)
+    solver = FmmSolver.build(cfg)
+    reset_launch_counts()
+    tuned = solver.tune(z, q)
+    probes = len(tuned.tune_result.trials)
+    assert launch_counts() == _main_counts(classify=probes, m2l=0, p2l=0,
+                                           eval_fused=0)
+    reset_launch_counts()
+    phi = tuned.apply_checked(z, q)
+    assert launch_counts() == _main_counts()
+    ref = FmmSolver.build(tuned.cfg, backend="reference").apply(z, q)
+    assert _rel(phi, ref) <= 1e-10
+    reset_launch_counts()
+    gphi, rep = solver.guarded().apply_guarded(z, q)
+    assert rep.ok and rep.degradations == ()
+    n = len(rep.attempts)
+    assert launch_counts() == {k: v * n for k, v in _main_counts().items()}
+    gref = FmmSolver.build(dataclasses.replace(
+        cfg, strong_cap=rep.attempts[-1].strong_cap,
+        weak_cap=rep.attempts[-1].weak_cap), backend="reference").apply(z, q)
+    assert _rel(gphi, gref) <= 1e-10
