@@ -74,19 +74,37 @@ Runs top to bottom and exits nonzero on the first failure:
    the f64 direct sum, a poisoned input refused;
    the direct rung's ms beside one ``nbody_direct`` call on the same
    particles;
-9. per-phase path: the "cuda" backend without its fused hooks,
+9. serve: (a) the default ``ServePlane()`` (lattice 64 .. 16,384, B <= 8,
+   f32, p = 17, caps 48/128) on two waves of 64 ragged requests with
+   10% poison (seeds 0 and 1) and the 9-size wave served twice: every
+   clean request "ok" or "recovered" on "cuda" within the f32 accuracy
+   bound of the f64 direct sum at every target, each poison rejected
+   with the reference's typed error, no ``BackendDowngradeWarning``,
+   the four main-path kernels once a guard attempt a dispatch (classify
+   and P2L none at nlevels 0); on the warm waves a dispatch hits the
+   cache exactly when its shape class was dispatched before, a hit
+   re-prepares nothing, and a bucket seen before builds no leaf layout;
+   requests/s, p50/p99 latency, padded-row share, cache counters and
+   median dispatch ms a wave, and a naive loop of one unpadded
+   ``FmmSolver.apply`` a request beside the second wave; (b) 8 requests
+   of 10^5-10^6 particles on the lattice 2^17 .. 2^20 (B <= 4) in f32
+   and f64, the same gates at N_SAMPLE targets a request; (c)
+   ``repro_torch.testing.serve_faults``' soak with its gates, every
+   clean request on "cuda" but the designed ``oversize->direct`` ones,
+   each warning once;
+10. per-phase path: the "cuda" backend without its fused hooks,
    registered as "cuda-phases", on the same problems: M2L once per
    level, L2P and P2P once, classify and P2L once, the fused evaluation
    never; the same accuracy bounds; in f64 phi within 1e-10 of the main
    path's and the reference backend's;
-10. batched: ``apply_batched`` with B = 4 at N = 2^20 in f32 on both
+11. batched: ``apply_batched`` with B = 4 at N = 2^20 in f32 on both
    paths — the same launches as one apply, each row equal to that
    problem's ``apply``;
-11. direct baseline: ``nbody_direct`` all-pairs at N = 2^20 in f32 and
+12. direct baseline: ``nbody_direct`` all-pairs at N = 2^20 in f32 and
    f64 (one launch each, its source splits printed), timed beside the
    FMM apply, and the paper's Fig. 5.5 sweep N = 2^9 .. 2^20 with the
    break-even N;
-12. prints one JSON line with every kernel's launches, error, times and
+13. prints one JSON line with every kernel's launches, error, times and
    bound (N-body also its splits at both shapes, K, registers and SASS
    instructions a pair; M2L its wide-row times and shared memory), the
    card line again, and last
@@ -158,6 +176,20 @@ GUARD_ROUNDS = 6
 # guard: time steps of (refresh, refresh + the guard's host read,
 # refresh_guarded) on moved particles, the order rotated every step
 REFRESH_STEPS = 9
+# serve: the ragged waves of the default plane (seeds, requests a wave,
+# median request size), and the typed rejection of each poison kind (the
+# reference's, ``tests/test_serve.py``)
+SERVE_SEEDS = (0, 1)
+SERVE_REQUESTS = 64
+SERVE_MEDIAN = 2048
+POISON_ERRORS = {"nan-q": "NonFiniteInputError",
+                 "inf-z": "NonFiniteInputError", "real-z": "DTypeError",
+                 "empty": "ShapeError"}
+# serve (b): the lattice 2^17 .. 2^20 and 8 requests of 10^5-10^6
+# particles (the users' scale, PERF.md section 1)
+BIG_LATTICE = (1 << 17, 1 << 20)
+BIG_WAVE = dict(seed=2, median_n=300_000, sigma=0.6, n_min=100_000,
+                n_max=1 << 20)
 # Fig. 5.5 sweep of the direct baseline against the FMM
 SWEEP = [1 << k for k in range(9, 21)]
 # accuracy bounds of the JAX reference's own tests
@@ -1289,6 +1321,260 @@ def fault_walk(torch) -> None:
           f"scaled_err vs the rung {err:.3e})", flush=True)
 
 
+@contextlib.contextmanager
+def dispatch_log(torch):
+    """Record every guarded batched dispatch (the serving plane's one
+    call a dispatch, ``GuardedSolver.apply_batched_guarded``): its shape
+    class, guard report, launches per kernel, the guard's trace counts
+    before and after, whether the primary solver stayed, the leaf
+    layouts built during it and its host ms (ending in a synchronize).
+    Restores the method on exit."""
+    from repro_torch.core.topology import layout_builds
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.solver import GuardedSolver
+
+    real = GuardedSolver.apply_batched_guarded
+    log = []
+
+    def logged(self, z, q):
+        solver, before, builds = self.solver, dict(self.trace_counts), \
+            layout_builds()
+        reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        phi, rep = real(self, z, q)
+        torch.cuda.synchronize()
+        log.append(dict(key=(self.cfg.n, z.shape[0]), cfg=self.cfg,
+                        report=rep, launches=launch_counts(),
+                        ms=1e3 * (time.perf_counter() - t0),
+                        trace=(before, dict(self.trace_counts)),
+                        same_solver=self.solver is solver,
+                        builds=layout_builds() - builds))
+        return phi, rep
+
+    GuardedSolver.apply_batched_guarded = logged
+    try:
+        yield log
+    finally:
+        GuardedSolver.apply_batched_guarded = real
+
+
+def serve_counts(cfg) -> dict:
+    """Launches per kernel of one guard attempt of a serving dispatch: the
+    main path's, without classify and P2L on a one-box tree (nlevels 0:
+    no leaf level to classify, no P2L pass)."""
+    leafy = int(cfg.nlevels > 0)
+    return want_counts(classify=leafy, p2l=leafy)
+
+
+def serve_wave(plane, wave, tag: str, torch, seen=None, full_acc=True):
+    """Serve one wave of ``(n, z, q, kind)`` requests on ``plane`` and
+    hold it to the serve gates: no ``BackendDowngradeWarning``; every
+    clean request "ok" or "recovered" on "cuda", its phi within the
+    accuracy bound of the f64 direct sum on the card (positions rounded
+    as the solver sees them; every target when ``full_acc``, else
+    N_SAMPLE sampled ones); every poisoned request rejected with the
+    reference's typed error for its kind; each dispatch launching
+    ``serve_counts`` once a guard attempt and the other kernels never.
+    With ``seen`` (the shape classes dispatched before), a dispatch is a
+    cache hit exactly when its shape class was seen, a hit leaves the
+    guard's trace counts and primary solver as they were, and a bucket
+    seen before builds no leaf layout. Prints the wave's numbers;
+    returns them."""
+    import numpy as np
+
+    from repro_torch.core.direct import direct_potential, rel_error_inf
+    from repro_torch.core.topology import layout_builds
+    from repro_torch.errors import BackendDowngradeWarning
+    from repro_torch.serve import Request
+
+    before = {b: s._asdict() for b, s in plane.cache.info().items()}
+    builds = layout_builds()
+    with warnings.catch_warnings(record=True) as caught, \
+            dispatch_log(torch) as log:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        results = plane.serve([Request(z, q) for _, z, q, _ in wave])
+        wall = time.perf_counter() - t0
+    builds = layout_builds() - builds
+    said = [str(w.message) for w in caught
+            if issubclass(w.category, BackendDowngradeWarning)]
+    check(said == [], f"{tag}: downgrade warnings {said}")
+    gen = torch.Generator().manual_seed(SEED)
+    worst, clean, lat = 0.0, 0, []
+    for (n, z, q, kind), (phi, rep) in zip(wave, results):
+        if kind != "ok":
+            check(rep.status == "rejected" and phi is None
+                  and rep.error == POISON_ERRORS[kind],
+                  f"{tag}: poison {kind}: {rep.summary()}")
+            continue
+        clean += 1
+        lat.append(rep.latency_s)
+        check(rep.status in ("ok", "recovered") and rep.backend == "cuda"
+              and phi is not None and phi.shape == (n,)
+              and bool(np.isfinite(phi).all()), f"{tag}: {rep.summary()}")
+        cfg = plane.cfg_factory(rep.bucket)
+        zs = torch.as_tensor(z.astype(cfg.complex_dtype),
+                             device=plane.device).to(
+            torch.complex128)
+        qs = torch.as_tensor(q, device=plane.device)
+        idx = (torch.arange(n) if full_acc or n <= N_SAMPLE else
+               torch.randperm(n, generator=gen)[:N_SAMPLE]).to(plane.device)
+        ref = direct_potential(zs[idx], zs, qs)
+        err = rel_error_inf(torch.as_tensor(phi, device=plane.device)[idx]
+                            .to(torch.complex128), ref)
+        worst = max(worst, err)
+        check(err < ACC_BOUND[cfg.dtype],
+              f"{tag}: {rep.summary()} rel_err_inf {err:.3e}")
+    for d in log:
+        want = {k: v * len(d["report"].attempts)
+                for k, v in serve_counts(d["cfg"]).items()}
+        check(d["launches"] == want and d["report"].degradations == (),
+              f"{tag}: dispatch {d['key']} {d['report'].summary()} "
+              f"launches {d['launches']} (want {want})")
+    if seen is not None:
+        for phi, rep in results:
+            if rep.bucket is not None:
+                known = (rep.bucket, rep.batch) in seen
+                check(rep.cache == ("hit" if known else "miss"),
+                      f"{tag}: {rep.summary()} (shape class seen: {known})")
+        for d in log:
+            if d["key"] in seen:
+                check(d["trace"][0] == d["trace"][1] and d["same_solver"],
+                      f"{tag}: a cache hit {d['key']} re-prepared: trace "
+                      f"{d['trace']}, same solver {d['same_solver']}")
+            if d["key"][0] in {b for b, _ in seen}:
+                check(d["builds"] == 0, f"{tag}: bucket {d['key'][0]} "
+                      f"rebuilt {d['builds']} leaf layouts")
+    rows = sum(k[0] * k[1] for k in (d["key"] for d in log))
+    real = sum(r.n for _, r in results if r.bucket is not None
+               and r.status != "rejected")
+    after = plane.cache.info()
+    counters = {b: tuple(v - before.get(b, {}).get(k, 0)
+                         for k, v in s._asdict().items())
+                for b, s in after.items()}
+    hits = sum(c[0] for c in counters.values())
+    out = dict(requests=len(wave), clean=clean, dispatches=len(log),
+               rps=clean / wall, p50=1e3 * float(np.percentile(lat, 50)),
+               p99=1e3 * float(np.percentile(lat, 99)),
+               dispatch_ms=statistics.median(d["ms"] for d in log),
+               padded=(rows - real) / rows if rows else 0.0, worst=worst,
+               builds=builds, keys={d["key"] for d in log}, wall=wall,
+               attempts=sum(len(d["report"].attempts) for d in log))
+    print(f"{tag}: {out['requests']} requests ({clean} clean), "
+          f"{out['dispatches']} dispatches ({out['attempts']} guard "
+          f"attempts; {hits} cache hits), per bucket (hits, misses, "
+          f"evictions) {counters}; padded-row share {out['padded']:.4f}; "
+          f"{out['rps']:.2f} clean requests/s ({wall:.3f} s); latency p50 "
+          f"{out['p50']:.2f} ms, p99 {out['p99']:.2f} ms; median dispatch "
+          f"{out['dispatch_ms']:.2f} ms (host); layouts built {builds}; "
+          f"worst rel_err_inf {worst:.3e}", flush=True)
+    return out
+
+
+def serve_phase(torch) -> None:
+    """The serving plane on the card: (a) the default ``ServePlane()``
+    (lattice 64 .. 16,384, f32, p = 17, caps 48/128) on two waves of 64
+    ragged requests with poison (cold, then a second wave on the warm
+    cache), the 9-size wave served twice (no cache miss, no re-prepare,
+    no layout built the second time), and a naive loop of one
+    unpadded ``FmmSolver.apply`` a request beside the warm wave; (b)
+    requests of 10^5-10^6 particles on the lattice 2^17 .. 2^20 in f32
+    and f64; (c) ``repro_torch.testing.serve_faults``' soak on the card,
+    every clean request served by the kernels but the designed
+    ``oversize->direct`` ones, each of which warns once."""
+    import functools
+
+    from repro_torch.data import particles_numpy, ragged_requests
+    from repro_torch.errors import BackendDowngradeWarning
+    from repro_torch.serve import (BucketLattice, ServePlane,
+                                   default_cfg_factory)
+    from repro_torch.solver import FmmSolver
+    from repro_torch.testing.serve_faults import run_soak
+
+    t_phase = time.perf_counter()
+    # (a) the default plane at full width
+    plane = ServePlane()
+    check(plane.lattice.sizes == tuple(64 << k for k in range(9))
+          and plane.max_batch == 8 and plane.cache.max_entries == 16,
+          f"serve: default plane {plane.lattice.sizes}")
+    seen: set = set()
+    waves = []
+    for s in SERVE_SEEDS:
+        wave = list(ragged_requests(SERVE_REQUESTS, seed=s,
+                                    median_n=SERVE_MEDIAN, sigma=1.0,
+                                    n_max=1 << 14, poison_rate=0.1))
+        out = serve_wave(plane, wave, f"serve[a/wave {s}]", torch,
+                         seen=seen if waves else None)
+        seen |= out["keys"]
+        waves.append((wave, out))
+    nine = [(n, *particles_numpy("uniform", n, i), "ok")
+            for i, n in enumerate(plane.lattice.sizes)]
+    for rep in range(2):
+        out = serve_wave(plane, nine, f"serve[a/9 sizes, pass {rep}]",
+                         torch, seen=seen if rep else None)
+        seen |= out["keys"]
+    check(out["dispatches"] == 9, f"serve: the 9-size wave took "
+          f"{out['dispatches']} dispatches")
+    # the naive loop: one unpadded, unbatched apply a clean request
+    wave, steady = waves[-1]
+    clean = [(z, q) for _, z, q, kind in wave if kind == "ok"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for z, q in clean:
+        cfg = default_cfg_factory(z.size)
+        FmmSolver.build(cfg).apply(z.astype(cfg.complex_dtype),
+                                   q.astype(cfg.complex_dtype)).cpu()
+    naive = len(clean) / (time.perf_counter() - t0)
+    print(f"serve[a]: naive loop (FmmSolver.build(default_cfg_factory(n))"
+          f".apply per request, unpadded) {naive:.2f} requests/s; the plane"
+          f" on the warm wave {steady['rps']:.2f} requests/s: "
+          f"{steady['rps'] / naive:.2f}x", flush=True)
+    del plane
+
+    # (b) requests at the users' scale, f32 and f64
+    big = list(ragged_requests(8, **BIG_WAVE))
+    for dt in ("f32", "f64"):
+        plane = ServePlane(BucketLattice.geometric(*BIG_LATTICE),
+                           max_batch=4, cfg_factory=functools.partial(
+                               default_cfg_factory, dtype=dt))
+        serve_wave(plane, big, f"serve[b/{dt}]", torch, full_acc=False)
+        del plane
+        torch.cuda.empty_cache()
+
+    # (c) the soak on the card
+    gates = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        t0 = time.perf_counter()
+        failures, served = run_soak(
+            log=lambda s: s.startswith("    ") or gates.append(s))
+        secs = time.perf_counter() - t0
+    print("\n".join(f"serve[c]: {g}" for g in gates), flush=True)
+    check(failures == [], f"serve[c]: soak gates failed: {failures}")
+    said = [str(w.message) for w in caught
+            if issubclass(w.category, BackendDowngradeWarning)]
+    direct = [rep for _, _, phi, rep in served
+              if rep.path[:1] == ("oversize->direct",)]
+    for phase, kind, phi, rep in served:
+        if phi is not None:
+            want = ("direct" if rep.path[:1] == ("oversize->direct",)
+                    else "cuda")
+            check(rep.backend == want, f"serve[c/{phase}]: {rep.summary()}")
+    check(len(said) == len(direct) and all(
+        f"request {rep.rid} " in m and "'oversize->direct'" in m
+        for rep, m in zip(direct, said)),
+        f"serve[c]: downgrade warnings {said} (want one a direct request: "
+        f"{[r.rid for r in direct]})")
+    print(f"serve[c]: soak on the card in {secs:.1f} s: "
+          f"{sum(phi is not None for _, _, phi, _ in served)} served "
+          f"({len(direct)} oversize->direct, one warning each), "
+          f"{sum(phi is None for _, _, phi, _ in served)} rejected",
+          flush=True)
+    print(f"serve: phase {time.perf_counter() - t_phase:.1f} s (host)",
+          flush=True)
+
+
 def register_phases(torch):
     """Register the per-phase backend: "cuda" without its fused hooks."""
     import dataclasses
@@ -1529,6 +1815,7 @@ def main() -> int:
     for dt in ("f32", "f64"):
         guard_phase(dt, served[dt], torch)
     fault_walk(torch)
+    serve_phase(torch)
     for dt in ("f32", "f64"):
         totals = per_phase_path(dt, served[dt], torch)
         print(f"phases[{dt}]: launches {totals}", flush=True)

@@ -10,15 +10,15 @@
                    bit parity with the JAX reference rests on
 """
 from .tree import (LeafLayout, Tree, build_tree, build_tree_lexsort,
-                   leaf_ids, leaf_layout, leaf_particle_index,
-                   leaf_particle_index_loop)
+                   layout_builds, leaf_ids, leaf_layout,
+                   leaf_particle_index, leaf_particle_index_loop)
 from .connectivity import (MARGIN_CLASSES, Connectivity, build_connectivity,
                            connectivity_stats, leaf_classify_reference)
 
 __all__ = [
     "Tree", "build_tree", "build_tree_lexsort", "leaf_ids",
     "leaf_particle_index", "leaf_particle_index_loop", "LeafLayout",
-    "leaf_layout",
+    "leaf_layout", "layout_builds",
     "Connectivity", "MARGIN_CLASSES", "build_connectivity",
     "connectivity_stats", "leaf_classify_reference",
 ]

@@ -24,7 +24,9 @@ seed build of one lexicographic sort a split, kept as its oracle.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -209,7 +211,8 @@ def build_tree_lexsort(z: torch.Tensor, q: torch.Tensor,
                 radii=tuple(radii))
 
 
-class LeafLayout(NamedTuple):
+@dataclasses.dataclass(frozen=True, eq=False)
+class LeafLayout:
     """The static dense leaf layout of one (N, nlevels) on one device."""
 
     flat: torch.Tensor       # (4**L * n_max,) int64 rank per dense slot;
@@ -220,10 +223,36 @@ class LeafLayout(NamedTuple):
     lid: torch.Tensor        # (N,) int64 leaf box owning each rank
 
 
+# Every layout still referenced, by (N, nlevels, device). A solver holds
+# the layouts of the shapes it has prepared (``FmmSolver._prepare``), so
+# a layout lives as long as a solver that reads it, however many other
+# sizes are served in between; ``leaf_layout``'s LRU keeps the most
+# recent ones besides, for callers outside a solver.
+_LAYOUTS: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
+_LAYOUT_BUILDS = [0]
+
+
+def layout_builds() -> int:
+    """How many leaf layouts this process has built (each is host work
+    and a copy to the device)."""
+    return _LAYOUT_BUILDS[0]
+
+
 @functools.lru_cache(maxsize=8)
 def leaf_layout(n: int, nlevels: int, device: torch.device) -> LeafLayout:
     """``leaf_particle_index`` and its inverse as device tensors, built
-    once per (N, nlevels, device) — the layout depends on nothing else."""
+    once per (N, nlevels, device) while any holder keeps it — the layout
+    depends on nothing else."""
+    key = (n, nlevels, device)
+    lay = _LAYOUTS.get(key)
+    if lay is None:
+        lay = _LAYOUTS[key] = _build_leaf_layout(n, nlevels, device)
+    return lay
+
+
+def _build_leaf_layout(n: int, nlevels: int,
+                       device: torch.device) -> LeafLayout:
+    _LAYOUT_BUILDS[0] += 1
     cfg = FmmConfig(n=n, nlevels=nlevels)
     idx = leaf_particle_index(cfg)
     valid = idx >= 0

@@ -18,12 +18,14 @@ failed:
   DeviceUnavailableError  the solver was asked for a device this process
                        cannot use (no CUDA card); there is no silent
                        fall-back to the CPU
+  DeadlineExceededError   a served request's deadline budget ran out
+                       before it was dispatched (``repro_torch.serve``)
+  OversizedRequestError   a served request is larger than the bucket
+                       lattice and the direct fall-back bound
 
 and one warning, ``BackendDowngradeWarning``: an entry point dispatches
 another backend than the one asked for (``apply_batched`` on a
 ``batched_dispatch="fallback"`` backend).
-
-The reference's serving errors arrive with the port of ``serve/``.
 
 The classes multiply-inherit the builtin a plain implementation would
 raise (``ValueError`` for validation, ``RuntimeError`` for overflow), so
@@ -79,6 +81,20 @@ class RecoveryExhaustedError(FmmError, RuntimeError):
     def __init__(self, message: str, *, report=None):
         super().__init__(message)
         self.report = report
+
+
+class DeadlineExceededError(FmmError, TimeoutError):
+    """A served request's deadline budget ran out before it could be
+    dispatched (admission control, ``repro_torch.serve``). The request was
+    shed, not computed — retrying with a fresh budget is the caller's
+    call."""
+
+
+class OversizedRequestError(ValidationError):
+    """A served request's N exceeds the bucket lattice *and* the direct
+    O(N^2) fallback bound — no shape class can absorb it. Recorded as the
+    typed rejection in a ``ServeReport`` by the serving plane's admission
+    controller."""
 
 
 class DeviceUnavailableError(FmmError, RuntimeError):

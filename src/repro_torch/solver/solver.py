@@ -148,6 +148,7 @@ class FmmSolver:
         self._warned_batched_fallback = False
         self.trace_counts = {"build": 0, "evaluate": 0}
         self._prepared: set = set()
+        self._layouts: dict = {}
         self.tune_result: Optional[TuneResult] = None
 
     # -- construction -------------------------------------------------------
@@ -198,7 +199,8 @@ class FmmSolver:
         if key in self._prepared:
             return
         cfg = self.cfg
-        leaf_layout(cfg.n, cfg.nlevels, t.device)      # both cached
+        # held here, so the layout lives as long as this solver
+        self._layouts[t.device] = leaf_layout(cfg.n, cfg.nlevels, t.device)
         if half == "evaluate":
             m2l_mat(cfg.p, cfg.torch_real, t.device)
         self._prepared.add(key)

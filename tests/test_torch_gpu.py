@@ -1,14 +1,17 @@
 """PyTorch port on the CUDA card: each kernel against its plain version
 on the same CUDA tensors, launch counts per kernel per apply on the main
 path and on the per-phase path, the solver's cuda-vs-reference parity,
-and the guard (its fault walk, a failing launch propagating) and tune on
-the card. Marked ``gpu``: skipped (inside a fixture,
-never at import) where no CUDA card is present. On the machine with the
+the guard (its fault walk, a failing launch propagating) and tune, and
+the serving plane (a failing launch leaving ``serve``, the shed walk's
+warnings, warm-up, no layout rebuilt on a warm wave) on the card.
+Marked ``gpu``: skipped (inside a fixture, never at import) where no
+CUDA card is present. On the machine with the
 card: ``PYTHONPATH=src python -m pytest --noconftest -m gpu
 tests/test_torch_gpu.py`` (the shared conftest imports JAX, which the
 port does not need)."""
 import dataclasses
 import sys
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -633,3 +636,125 @@ def test_tune_and_guard_on_the_card(cuda, dist):
         cfg, strong_cap=rep.attempts[-1].strong_cap,
         weak_cap=rep.attempts[-1].weak_cap), backend="reference").apply(z, q)
     assert _rel(gphi, gref) <= 1e-10
+
+
+# ---------------------------------------------------------------------------
+# the serving plane on the card
+# ---------------------------------------------------------------------------
+
+def _serve_plane(**kw):
+    """A plane on the card on the lattice 1024 / 2048 (two levels and
+    more: every main-path kernel launches), default config (f32, p = 17,
+    caps 48/128)."""
+    from repro_torch.serve import BucketLattice, ServePlane
+    kw.setdefault("direct_max", 4096)
+    return ServePlane(BucketLattice(sizes=(1024, 2048)), max_batch=4, **kw)
+
+
+def _request(n, seed):
+    from repro_torch.data import particles_numpy
+    return particles_numpy("uniform", n, seed)
+
+
+@pytest.mark.parametrize("name", ["classify", "m2l", "p2l", "eval_fused"])
+def test_kernel_launch_error_propagates_out_of_serve(cuda, monkeypatch,
+                                                     name):
+    """A kernel whose launch fails is not shed: the error leaves
+    ``ServePlane.serve`` (no walk to the next bucket, the reference
+    backend or the direct sum)."""
+    from repro_torch.errors import FmmError
+    from repro_torch.kernels.build import LIBRARIES
+    from repro_torch.serve import Request
+
+    def failing(symbol, *args):
+        raise RuntimeError(f"{name}:{symbol} launch failed: injected "
+                           "(cudaError 700)")
+
+    plane = _serve_plane()
+    monkeypatch.setattr(LIBRARIES[name], "launch", failing)
+    reset_launch_counts()
+    with pytest.raises(RuntimeError, match="launch failed") as ei:
+        plane.serve([Request(*_request(1000, 1))])
+    assert not isinstance(ei.value, FmmError)
+    assert plane.counters["shed_walks"] == 0
+    assert launch_counts()["nbody"] == 0
+
+
+@pytest.mark.parametrize("walk", ["bucket", "reference", "oversize"])
+def test_shed_walk_on_the_card(cuda, monkeypatch, walk):
+    """``shed:bucket`` serves from the kernels of the next bucket without
+    a warning; ``shed:reference`` (plain torch, after both buckets fail)
+    and ``oversize->direct`` warn once each, naming the step."""
+    from repro_torch.errors import (BackendDowngradeWarning,
+                                    RecoveryExhaustedError)
+    from repro_torch.serve import Request
+    from repro_torch.solver import GuardedSolver
+
+    plane = _serve_plane()
+    failing = {"bucket": {1024}, "reference": {1024, 2048},
+               "oversize": set()}[walk]
+    for entry in ("apply_batched_guarded", "apply_guarded"):
+        real = getattr(GuardedSolver, entry)
+
+        def fail(g, z, q, real=real):
+            if g.cfg.n in failing and g.backend_name == "auto":
+                raise RecoveryExhaustedError("injected")
+            return real(g, z, q)
+        monkeypatch.setattr(GuardedSolver, entry, fail)
+    n = 3000 if walk == "oversize" else 1000
+    z, q = _request(n, 2)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        (phi, rep), = plane.serve([Request(z, q)])
+    said = [str(w.message) for w in caught
+            if issubclass(w.category, BackendDowngradeWarning)]
+    step, backend = {"bucket": (None, "cuda"),
+                     "reference": ("shed:reference", "reference"),
+                     "oversize": ("oversize->direct", "direct")}[walk]
+    assert rep.status == "degraded" and rep.backend == backend
+    if step is None:
+        assert said == [] and "shed:bucket:2048" in rep.path
+    else:
+        assert len(said) == 1 and f"step {step!r}" in said[0]
+        assert step in rep.path
+    from repro_torch.core import direct_potential_numpy
+    ref = direct_potential_numpy(z, z, q)
+    assert phi.shape == (n,)
+    assert np.abs(phi - ref).max() <= 5e-4 * np.abs(ref).max()
+
+
+def test_plan_cache_warm_on_the_card(cuda):
+    """``PlanCache.warm`` launches each main-path kernel once and leaves
+    the entry's ``trace_counts`` at 1 / 1."""
+    from repro_torch.serve import PlanCache, default_cfg_factory
+
+    FmmSolver.cache_clear()
+    cache = PlanCache(default_cfg_factory)
+    reset_launch_counts()
+    guarded = cache.warm(2048, 2)
+    assert launch_counts() == _main_counts()
+    assert guarded.trace_counts == {"build": 1, "evaluate": 1}
+    assert guarded.device.type == "cuda"
+
+
+def test_nine_bucket_wave_rebuilds_no_layout(cuda):
+    """The default plane's 9 sizes served twice: the second wave is all
+    cache hits, prepares nothing and builds no leaf layout."""
+    from repro_torch.core.topology import layout_builds
+    from repro_torch.serve import Request, ServePlane
+
+    plane = ServePlane()
+    reqs = [Request(*_request(n, i))
+            for i, n in enumerate(plane.lattice.sizes)]
+    first = plane.serve(reqs)
+    assert all(r.report.status in ("ok", "recovered")
+               and r.report.backend == "cuda" for r in first)
+    traces = {k: dict(g.trace_counts) for k, g in plane.cache._entries.items()}
+    builds = layout_builds()
+    second = plane.serve(reqs)
+    assert layout_builds() == builds
+    assert all(r.report.cache == "hit" for r in second)
+    assert traces == {k: dict(g.trace_counts)
+                      for k, g in plane.cache._entries.items()}
+    for a, b in zip(first, second):
+        assert np.array_equal(a.phi, b.phi)
