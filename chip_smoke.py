@@ -33,17 +33,37 @@ Runs top to bottom and exits nonzero on the first failure:
    each W;
 5. main path: ``FmmSolver.build(fmm_config(1 << 20, p=17))`` on the
    default device and ``apply_checked`` on uniform, normal and layer
-   particles (seed 0), in f32 and f64: the four main-path kernels launch
-   exactly once per apply and the per-phase and N-body kernels never;
+   particles (seed 0), in f32 and f64: each entry point runs as a
+   program, eagerly at its first call at a shape, captured as a CUDA
+   graph at its second and replayed after; the four main-path kernels
+   run exactly once per apply (launched from the host at a first call,
+   recorded into the graph at a second, or a replay of a graph that
+   recorded them) and the per-phase and N-body kernels never;
    accuracy against ``direct_potential`` on 4096 sampled targets over
    all 2^20 sources; in f64 the "cuda" and "reference" backends must
-   agree within 1e-10;
+   agree within 1e-10; apply ms replayed, the first call's beside it;
+   graphs: at the main path's configs on the three distributions (and
+   the per-phase backend on uniform), in f32 and f64, each entry point
+   (``apply``, ``apply_with_health``, ``apply_batched`` at B = 4,
+   ``refresh``, ``apply_plan``) on a fresh solver: the first call's ms
+   (eager, one run's launches from the host), the second's (capture and
+   replay, one run's launches recorded), replay and eager medians, every
+   call bitwise the eager pipeline (``fmm_build`` / ``fmm_evaluate``
+   with the backend's hooks), no host launch in a replay, the kernels a
+   replay runs on the card read by name from a profiler trace, the pool
+   bytes each capture charges, the programs held, and the memory back
+   after ``_release_executables``;
+   after each group of phases the programs held, the pool bytes charged
+   against the programs' memory budget, the solvers it released, and
+   the memory reserved with its peak; nothing is released between
+   phases but by the solver LRU and that budget;
 6. seam: the time-stepping shape of a vortex-method user on the main
-   path's uniform config, in f32 and f64: three steps of
+   path's uniform config, in f32 and f64: five steps of
    ``refresh(z_k, q)`` then ``apply_plan(plan)`` on particles moved by
    1e-4 N(0, 1) a step (clamped to the unit square), each step's phi
    bitwise ``apply(z_k, q)``'s; ``refresh`` launches classify once,
-   ``apply_plan`` M2L, P2L and the fused evaluation once each;
+   ``apply_plan`` M2L, P2L and the fused evaluation once each (eager,
+   captured, then replayed);
    ``trace_counts`` 1 / 1 on a fresh solver; ``stats`` without overflow
    and its pair counts those of a numpy count of the plan's lists;
    refresh and apply_plan ms (host clock ending in a synchronize,
@@ -85,7 +105,9 @@ Runs top to bottom and exits nonzero on the first failure:
    cache exactly when its shape class was dispatched before, a hit
    re-prepares nothing, and a bucket seen before builds no leaf layout;
    requests/s, p50/p99 latency, padded-row share, cache counters and
-   median dispatch ms a wave, and a naive loop of one unpadded
+   median dispatch ms, program calls by kind (eager / capture / replay),
+   programs held and memory reserved a wave, and a
+   naive loop of one unpadded
    ``FmmSolver.apply`` a request beside the second wave; (b) 8 requests
    of 10^5-10^6 particles on the lattice 2^17 .. 2^20 (B <= 4) in f32
    and f64, the same gates at N_SAMPLE targets a request; (c)
@@ -103,8 +125,9 @@ Runs top to bottom and exits nonzero on the first failure:
 12. direct baseline: ``nbody_direct`` all-pairs at N = 2^20 in f32 and
    f64 (one launch each, its source splits printed), timed beside the
    FMM apply, and the paper's Fig. 5.5 sweep N = 2^9 .. 2^20 with the
-   break-even N;
-13. prints one JSON line with every kernel's launches, error, times and
+   break-even N (the FMM apply replayed; its first call printed);
+13. prints one JSON line with every kernel's launches (from the host in
+   the main path's run), error, times and
    bound (N-body also its splits at both shapes, K, registers and SASS
    instructions a pair; M2L its wide-row times and shared memory), the
    card line again, and last
@@ -123,6 +146,7 @@ import sys
 import time
 import warnings
 from pathlib import Path
+from typing import NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -164,8 +188,10 @@ PHASES = "cuda-phases"
 # boxes (4,099 boxes in all: the kernel's 7-box tiles leave a ragged one)
 WIDE_W = (128, 7680, 12288)
 WIDE_BOXES = (3000, 1099)
-# seam: time steps, and the step of the particles' random walk
-SEAM_STEPS = 3
+# seam: time steps (a program runs eagerly at its first call and
+# captures at its second, so steps 3-5 time replays), and the step of
+# the particles' random walk
+SEAM_STEPS = 5
 SEAM_EPS = 1e-4
 # the fault walk's size: its direct rung costs N^2 pair terms in plain
 # torch on the card (about 0.3-0.5 s at 2^16; 256 times that at 2^20)
@@ -190,6 +216,10 @@ POISON_ERRORS = {"nan-q": "NonFiniteInputError",
 BIG_LATTICE = (1 << 17, 1 << 20)
 BIG_WAVE = dict(seed=2, median_n=300_000, sigma=0.6, n_min=100_000,
                 n_max=1 << 20)
+# graphs: replays and eager runs timed per entry point, and the batch
+# width of apply_batched
+GRAPH_REPS = 5
+GRAPH_B = 4
 # Fig. 5.5 sweep of the direct baseline against the FMM
 SWEEP = [1 << k for k in range(9, 21)]
 # accuracy bounds of the JAX reference's own tests
@@ -239,6 +269,142 @@ def phase_counts(cfg) -> dict:
 def check(cond, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+# Every program call of the run, as (entry, kind, recorded): kind is
+# "eager" (a program's first call), "capture" (its second: it captures,
+# then replays once) or "replay"; recorded: the launches its capture
+# recorded. Filled by ``observe_programs``, read by ``counting``.
+PROGRAM_CALLS: list = []
+# a kernel's name on the card's timeline: <name>_kernel<...>(...)
+KERNEL_NAME = re.compile(r"\b([a-z0-9_]+?)_kernel\b")
+
+
+class Calls(NamedTuple):
+    """What the kernel wrappers and the programs did in one counted
+    call: launches from the host (``kernels.launch_counts``), launches
+    recorded into a graph being captured (``kernels.build.
+    recorded_counts``), and the program calls made (``PROGRAM_CALLS``)."""
+
+    host: dict
+    recorded: dict
+    programs: list
+
+
+def observe_programs() -> None:
+    """Log every ``Program`` call into PROGRAM_CALLS, with its kind (once
+    per process: a second call changes nothing)."""
+    from repro_torch.solver.program import Program
+
+    real = Program.__call__
+    if getattr(real, "observed", False):
+        return
+
+    def observed(self, *args):
+        kind = ("replay" if self.captured else
+                "eager" if self.calls == 0 else "capture")
+        out = real(self, *args)
+        PROGRAM_CALLS.append((self.entry, kind, dict(self.recorded)))
+        return out
+
+    observed.observed = True
+    Program.__call__ = observed
+
+
+@contextlib.contextmanager
+def counting(torch):
+    """Count what runs inside the block: on exit the yielded dict holds
+    ``calls`` (``Calls``) and ``secs`` (host seconds, the block ending
+    in a synchronize)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.build import recorded_counts
+
+    box = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    rec, n = recorded_counts(), len(PROGRAM_CALLS)
+    t0 = time.perf_counter()
+    yield box
+    torch.cuda.synchronize()
+    box["secs"] = time.perf_counter() - t0
+    after = recorded_counts()
+    box["calls"] = Calls(launch_counts(),
+                         {k: after[k] - rec[k] for k in after},
+                         PROGRAM_CALLS[n:])
+
+
+def counted(fn, torch):
+    """(fn(), its ``Calls``, its host seconds ending in a synchronize)."""
+    with counting(torch) as box:
+        out = fn()
+    return out, box["calls"], box["secs"]
+
+
+def ran(c: Calls, want: dict, n: int = 1) -> bool:
+    """Whether a counted call ran ``want`` in each of its ``n`` program
+    calls, by measured counts only: the program calls that ran eagerly
+    or captured launched or recorded ``want`` each (the wrappers' counts
+    over the call), and each replay replayed a graph whose capture
+    recorded ``want`` (what a replay runs on the card is read from a
+    profiler trace in the graphs phase)."""
+    fresh = sum(kind != "replay" for _, kind, _ in c.programs)
+    return (len(c.programs) == n
+            and all(c.host[k] + c.recorded[k] == want[k] * fresh
+                    for k in KERNELS)
+            and all(r == want for _, kind, r in c.programs
+                    if kind == "replay"))
+
+
+def calls_note(c: Calls) -> str:
+    """A counted call's launches from the host, recorded into captures,
+    and its program calls by kind (nonzero kernels only)."""
+    nz = lambda d: {k: v for k, v in d.items() if v}  # noqa: E731
+    kinds = "/".join(kind for _, kind, _ in c.programs) or "none"
+    return f"host {nz(c.host)}, recorded {nz(c.recorded)}, programs {kinds}"
+
+
+def replay_kernels(call, torch):
+    """(call(), launches per kernel of KERNELS on the card's timeline): a
+    ``torch.profiler`` trace of the call, its device events counted by
+    kernel name (``<name>_kernel``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = call()
+        torch.cuda.synchronize()
+    counts = dict.fromkeys(KERNELS, 0)
+    for e in prof.events():
+        m = KERNEL_NAME.search(e.name)
+        if (str(e.device_type).endswith("CUDA") and m
+                and m.group(1) in counts):
+            counts[m.group(1)] += 1
+    return out, counts
+
+
+def programs_held() -> int:
+    """Programs held by the solvers of the ``FmmSolver.build`` cache."""
+    from repro_torch.solver import FmmSolver
+    return sum(s._compiled_program_count()
+               for s in FmmSolver._cached_solvers())
+
+
+def memory_line(tag: str, torch) -> None:
+    """Print the programs the cached solvers hold, the graph-pool bytes
+    charged to all programs against their budget, the solvers the budget
+    has released so far, and the memory reserved now and at its peak
+    since the last line (then reset the peak)."""
+    from repro_torch.solver import program_memory
+
+    mem = program_memory()
+    print(f"memory[{tag}]: cached solvers hold {programs_held()} programs;"
+          f" pools charged {mem['held']} B over {mem['solvers']} solvers "
+          f"(budget {mem['budget']} B; released so far "
+          f"{mem['released_sets']} solvers, {mem['released_bytes']} B); "
+          f"reserved {torch.cuda.memory_reserved()} B, peak "
+          f"{torch.cuda.max_memory_reserved()} B", flush=True)
+    torch.cuda.reset_peak_memory_stats()
 
 
 def card_line() -> str:
@@ -733,21 +899,20 @@ def kernel_phase(dt: str, torch) -> list[dict]:
 
 def grown_apply(solver_for, cfg, z, q, tag: str):
     """``apply_checked`` on the solver ``solver_for(cfg)`` returns, raising
-    the caps until no list overflows. Returns (phi, launches of the last
-    apply, the config used, the solver)."""
+    the caps until no list overflows. Returns (phi, the ``Calls`` of the
+    last apply, the config used, the solver, the host seconds of that
+    call)."""
     import torch
 
     from repro_torch.errors import CapOverflowError
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.solver.guard import grow_caps
 
     while True:
         solver = solver_for(cfg)
-        reset_launch_counts()
         try:
-            phi = solver.apply_checked(z, q)
-            torch.cuda.synchronize()
-            return phi, launch_counts(), cfg, solver
+            phi, calls, secs = counted(lambda: solver.apply_checked(z, q),
+                                       torch)
+            return phi, calls, cfg, solver, secs
         except CapOverflowError as e:
             cfg = grow_caps(cfg, e.margins)
             print(f"{tag}: caps overflow {e.margins}; raised to "
@@ -756,26 +921,33 @@ def grown_apply(solver_for, cfg, z, q, tag: str):
 
 
 def median_apply_s(solver, z, q, phi, tag: str, torch) -> float:
-    """Median host seconds of three more applies (each ending in a
-    synchronize); each must equal ``phi`` bitwise."""
+    """Median host seconds of three replayed applies: ``apply`` called
+    twice first (a program's first call runs eagerly, its second
+    captures), then three times more, each ending in a synchronize and
+    each a replay that launches nothing from the host; every call must
+    equal ``phi`` bitwise."""
     reps = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        again = solver.apply(z, q)
-        torch.cuda.synchronize()
-        reps.append(time.perf_counter() - t0)
+    for i in range(5):
+        again, c, secs = counted(lambda: solver.apply(z, q), torch)
         check(torch.equal(again, phi), f"{tag}: apply not bitwise "
               "reproducible")
+        if i >= 2:
+            check([k for _, k, _ in c.programs] == ["replay"]
+                  and not any(c.host.values())
+                  and not any(c.recorded.values()),
+                  f"{tag}: apply call {i + 1}: {calls_note(c)} (want a "
+                  "replay)")
+            reps.append(secs)
     return statistics.median(reps)
 
 
 def main_path(dt: str, torch) -> tuple[dict, dict]:
     """The served entry point on three distributions; returns the launch
-    totals and, per distribution, what the per-phase path is held
-    against: the config used (caps raised where needed), the problem,
-    the main path's phi and apply time, the direct sums at the sampled
-    targets and, in f64, the reference backend's phi."""
+    totals from the host and, per distribution, what the per-phase path
+    is held against: the config used (caps raised where needed), the
+    problem, the main path's phi and apply time (a replay; the first
+    call's beside it), the direct sums at the sampled targets and, in
+    f64, the reference backend's phi."""
     from repro_torch.configs import fmm_config
     from repro_torch.core.direct import direct_potential, rel_error_inf
     from repro_torch.data import particles
@@ -796,11 +968,11 @@ def main_path(dt: str, torch) -> tuple[dict, dict]:
                   f"dispatched {solver.dispatched}")
             return solver
 
-        phi, counts, cfg, solver = grown_apply(build, cfg, z, q, tag)
-        check(counts == want_counts(),
-              f"{tag}: launches per apply {counts} (want {want_counts()})")
-        for k, v in counts.items():
-            totals[k] += v
+        phi, calls, cfg, solver, first_s = grown_apply(build, cfg, z, q, tag)
+        check(ran(calls, want_counts()), f"{tag}: launches per apply "
+              f"{calls_note(calls)} (want {want_counts()})")
+        for k in KERNELS:
+            totals[k] += calls.host[k]
         secs = median_apply_s(solver, z, q, phi, tag, torch)
         # accuracy: f64 direct sum at sampled targets over all sources,
         # both from the positions as given and from the positions as the
@@ -812,7 +984,9 @@ def main_path(dt: str, torch) -> tuple[dict, dict]:
         err_given = rel_error_inf(got, d_given)
         err_seen = rel_error_inf(got, d_seen)
         print(f"{tag}: caps strong={cfg.strong_cap} weak={cfg.weak_cap}; "
-              f"launches {counts}; apply {1e3 * secs:.1f} ms; rel_err_inf "
+              f"launches {calls_note(calls)}; apply {1e3 * secs:.1f} ms "
+              f"(replayed; the apply_checked above {1e3 * first_s:.1f} ms); "
+              f"rel_err_inf "
               f"vs direct: {err_given:.3e} (positions as given), "
               f"{err_seen:.3e} (positions in {dt})", flush=True)
         check(err_seen < ACC_BOUND[dt],
@@ -824,10 +998,171 @@ def main_path(dt: str, torch) -> tuple[dict, dict]:
             print(f"{tag}: cuda vs reference backend {d:.3e}", flush=True)
             check(d <= F64_TOL, f"cuda vs reference {d:.3e} > {F64_TOL}")
         out[dist] = dict(cfg=cfg, z=z, q=q, phi=phi, secs=secs,
-                         sample=sample, d_seen=d_seen, ref=ref)
+                         first_s=first_s, sample=sample, d_seen=d_seen,
+                         ref=ref)
         del d_given
         torch.cuda.empty_cache()
     return totals, out
+
+
+def leaves(obj) -> list:
+    """The tensors of a nest of tuples (phi, a ``Health``, a plan)."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return [obj]
+    return [t for o in obj for t in leaves(o)]
+
+
+def eager_entry(solver, entry: str, *args):
+    """What the program of ``entry`` runs, run eagerly: ``fmm_build`` /
+    ``fmm_evaluate`` with the solver's backend hooks on (B, N) inputs
+    (or a plan), phi unsorted to input order, the health plane beside it
+    for ``apply_with_health``."""
+    from repro_torch.core.fmm import (fmm_build, fmm_evaluate, health_of,
+                                      unsort)
+
+    cfg, be = solver.cfg, solver.backend
+    if entry == "apply_plan":
+        plan, = args
+        return unsort(fmm_evaluate(plan, cfg, **be.phase_impls()),
+                      plan.tree.perm)
+    z, q = args
+    plan = fmm_build(z, q, cfg, **be.topology_impls())
+    if entry == "refresh":
+        return plan
+    phi = unsort(fmm_evaluate(plan, cfg, **be.phase_impls()), plan.tree.perm)
+    return (phi, health_of(plan, z, q, phi)) if entry.endswith("health") \
+        else phi
+
+
+def entry_calls(solver, z, q, zb, qb, plan) -> dict:
+    """Per entry point of the graphs phase: (the solver's call, the same
+    work run eagerly, the launches one run makes) on one problem (z, q),
+    a batch (zb, qb) of GRAPH_B and a plan of (z, q)."""
+    cfg = solver.cfg
+    zc, qc = (a.to(cfg.torch_complex)[None] for a in (z, q))
+    zbc, qbc = (a.to(cfg.torch_complex) for a in (zb, qb))
+    full = (want_counts() if solver.backend.name == "cuda"
+            else phase_counts(cfg))
+    zero = {k: 0 for k in KERNELS}
+    return {
+        "apply": (lambda: solver.apply(z, q),
+                  lambda: eager_entry(solver, "apply", zc, qc)[0], full),
+        "apply_with_health": (
+            lambda: solver.apply_with_health(z, q),
+            lambda: (lambda o: (o[0][0], o[1]))(
+                eager_entry(solver, "apply_with_health", zc, qc)), full),
+        "apply_batched": (
+            lambda: solver.apply_batched(zb, qb),
+            lambda: eager_entry(solver, "apply_batched", zbc, qbc), full),
+        "refresh": (lambda: solver.refresh(z, q),
+                    lambda: eager_entry(solver, "refresh", zc, qc),
+                    dict(zero, classify=1)),
+        "apply_plan": (lambda: solver.apply_plan(plan),
+                       lambda: eager_entry(solver, "apply_plan", plan)[0],
+                       dict(full, classify=0)),
+    }
+
+
+def graphs_phase(dt: str, main: dict, torch) -> None:
+    """Each solver entry point as a captured program, at the main path's
+    configs on uniform, normal and layer particles (and the per-phase
+    backend on uniform), on a fresh solver: per entry point the first
+    call (eager: one run's launches from the host) and the second (the
+    capture: one run's launches recorded, none from the host, then a
+    replay) with their ms and the pool bytes the capture charged,
+    GRAPH_REPS replays (none launching from the host) and as many eager
+    runs of the same pipeline on the same inputs (host clock ending in a
+    synchronize; medians), one more replay traced by the profiler (the
+    kernels it ran on the card, by name, equal to one run's), every
+    call bitwise the eager pipeline's output; then the programs held, and
+    the memory back after ``_release_executables``."""
+    from repro_torch.data import particles
+    from repro_torch.solver import FmmSolver
+
+    others = [particles(d, N, s) for d, s in
+              (("normal", 1), ("layer", 1), ("uniform", 2))]
+    for dist in DISTS:
+        m = main[dist]
+        cfg, z, q = m["cfg"], m["z"], m["q"]
+        zb = torch.stack([z] + [o[0] for o in others[:GRAPH_B - 1]])
+        qb = torch.stack([q] + [o[1] for o in others[:GRAPH_B - 1]])
+        for backend in ("cuda", PHASES) if dist == "uniform" else ("cuda",):
+            tag = f"graphs[{dt}/{dist}/{backend}]"
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            r_start = torch.cuda.memory_reserved()
+            solver = FmmSolver(cfg, backend)          # uncached, no programs
+            plan = eager_entry(solver, "refresh",
+                               *(a.to(cfg.torch_complex)[None]
+                                 for a in (z, q)))
+            calls = entry_calls(solver, z, q, zb, qb, plan)
+            for entry, (call, eager, want) in calls.items():
+                eager_s = []
+                for _ in range(GRAPH_REPS):
+                    ref, secs = host_s(eager, torch)
+                    eager_s.append(secs)
+
+                def same(got):
+                    return len(leaves(got)) == len(leaves(ref)) and all(
+                        torch.equal(a, b) for a, b in
+                        zip(leaves(got), leaves(ref)))
+
+                charged = solver._programs.bytes
+                first_ms = []
+                for kind in ("eager", "capture"):
+                    got, c, secs = counted(call, torch)
+                    first_ms.append(1e3 * secs)
+                    check(ran(c, want) and [k for _, k, _ in c.programs]
+                          == [kind] and same(got),
+                          f"{tag}/{entry}: {kind} call {calls_note(c)} (want "
+                          f"{want}), bitwise eager {same(got)}")
+                    del got
+                pool = solver._programs.bytes - charged
+                replay_s = []
+                for _ in range(GRAPH_REPS):
+                    got, c, secs = counted(call, torch)
+                    check(ran(c, want) and [k for _, k, _ in c.programs]
+                          == ["replay"] and same(got),
+                          f"{tag}/{entry}: replay {calls_note(c)}, bitwise "
+                          f"eager "
+                          f"{same(got)}")
+                    replay_s.append(secs)
+                    del got
+                (got, traced), c, _ = counted(
+                    lambda: replay_kernels(call, torch), torch)
+                check(traced == want and same(got)
+                      and not any(c.host.values()),
+                      f"{tag}/{entry}: a traced replay ran {traced} on the "
+                      f"card, {calls_note(c)} (want {want})")
+                del got, ref
+                ms = {k: 1e3 * statistics.median(v) for k, v in
+                      (("replay", replay_s), ("eager", eager_s))}
+                print(f"{tag}/{entry}: first call (eager) "
+                      f"{first_ms[0]:.2f} ms, second (capture + replay) "
+                      f"{first_ms[1]:.2f} ms, replay {ms['replay']:.2f} "
+                      f"ms, eager pipeline {ms['eager']:.2f} ms (medians "
+                      f"of {GRAPH_REPS}, host clock): "
+                      f"{ms['eager'] / ms['replay']:.2f}x; every call "
+                      f"bitwise eager; recorded {want}, a traced replay "
+                      f"ran the same; pool charged {pool} B", flush=True)
+            count = solver._compiled_program_count()
+            check(count == 5, f"{tag}: {count} programs (want 5)")
+            torch.cuda.synchronize()
+            held, charged = torch.cuda.memory_reserved(), \
+                solver._programs.bytes
+            solver._release_executables()
+            del solver, plan, calls, call, eager
+            torch.cuda.empty_cache()
+            back = torch.cuda.memory_reserved()
+            print(f"{tag}: {count} programs, pools charged {charged} B, "
+                  f"reserved {held - r_start} B over the start; after "
+                  f"_release_executables + empty_cache reserved {back} B "
+                  f"(before the first call {r_start} B)", flush=True)
+            check(back - r_start <= 0.01 * (held - r_start),
+                  f"{tag}: release returned {held - back} of "
+                  f"{held - r_start} B")
 
 
 def wide_m2l_operands(W: int, dt: str, torch, seed: int = SEED,
@@ -960,9 +1295,10 @@ def plan_counts(conn) -> dict:
 
 def seam_phase(dt: str, main: dict, torch) -> None:
     """refresh + apply_plan on moved particles, the main path's uniform
-    config: bitwise apply, launches per half, trace_counts, stats, the
-    median times; and one step on the per-phase backend."""
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    config: bitwise apply, launches per half (from the host at a
+    program's first call, recorded at its second, a replay of a graph
+    that recorded them after), trace_counts, stats, the median times;
+    and one step on the per-phase backend."""
     from repro_torch.solver import FmmSolver
 
     m = main["uniform"]
@@ -973,57 +1309,58 @@ def seam_phase(dt: str, main: dict, torch) -> None:
     solver = FmmSolver(cfg)                  # fresh: its own trace_counts
     times = {"refresh": [], "apply_plan": [], "apply": []}
 
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times[name].append(time.perf_counter() - t0)
-        return out, launch_counts()
+    def timed(name, fn, step, want):
+        out, c, secs = counted(fn, torch)
+        times[name].append(secs)
+        check(ran(c, want), f"seam[{dt}/step {step}]: {name} {calls_note(c)} "
+              f"(want {want})")
+        return out, calls_note(c)
 
     for step in range(SEAM_STEPS):
         tag = f"seam[{dt}/step {step}]"
         zk = perturbed(z, step)
-        plan, c_refresh = timed("refresh", lambda: solver.refresh(zk, q))
-        phi, c_plan = timed("apply_plan", lambda: solver.apply_plan(plan))
-        ref, _ = timed("apply", lambda: solver.apply(zk, q))
-        check(c_refresh == want_refresh,
-              f"{tag}: refresh launches {c_refresh} (want {want_refresh})")
-        check(c_plan == want_plan,
-              f"{tag}: apply_plan launches {c_plan} (want {want_plan})")
+        plan, c_refresh = timed("refresh", lambda: solver.refresh(zk, q),
+                                step, want_refresh)
+        phi, c_plan = timed("apply_plan", lambda: solver.apply_plan(plan),
+                            step, want_plan)
+        ref, _ = timed("apply", lambda: solver.apply(zk, q), step,
+                       want_counts())
         check(torch.equal(phi, ref), f"{tag}: refresh + apply_plan is not "
               "bitwise apply")
         stats = solver.stats(zk, q)
-        counted = plan_counts(plan.conn)
+        counted_lists = plan_counts(plan.conn)
         check(stats["overflow"] == 0, f"{tag}: overflow {stats}")
-        check(all(stats[k] == v for k, v in counted.items()),
-              f"{tag}: stats {stats} != numpy count {counted}")
+        check(all(stats[k] == v for k, v in counted_lists.items()),
+              f"{tag}: stats {stats} != numpy count {counted_lists}")
         print(f"{tag}: refresh {1e3 * times['refresh'][-1]:.2f} ms, "
               f"apply_plan {1e3 * times['apply_plan'][-1]:.2f} ms, apply "
               f"{1e3 * times['apply'][-1]:.2f} ms; bitwise apply; "
               f"launches {c_refresh} / {c_plan}; stats {stats}", flush=True)
     check(solver.trace_counts == {"build": 1, "evaluate": 1},
           f"seam[{dt}]: trace_counts {solver.trace_counts}")
-    ms = {k: 1e3 * statistics.median(v[1:]) for k, v in times.items()}
+    ms = {k: 1e3 * statistics.median(v[2:]) for k, v in times.items()}
     print(f"seam[{dt}] N={N}: refresh {ms['refresh']:.2f} ms + apply_plan "
-          f"{ms['apply_plan']:.2f} ms (median of steps 2-{SEAM_STEPS}); "
-          f"apply on the same steps {ms['apply']:.2f} ms; main-path apply "
+          f"{ms['apply_plan']:.2f} ms (replays, median of steps "
+          f"3-{SEAM_STEPS}; step 1, eager: "
+          f"{1e3 * times['refresh'][0]:.2f} + "
+          f"{1e3 * times['apply_plan'][0]:.2f} ms); apply on the same "
+          f"steps {ms['apply']:.2f} ms; main-path apply "
           f"{1e3 * m['secs']:.2f} ms; trace_counts {solver.trace_counts}",
           flush=True)
 
     phases = FmmSolver(cfg, backend=PHASES)
     zk = perturbed(z, SEAM_STEPS)
-    plan, c_refresh = timed("refresh", lambda: phases.refresh(zk, q))
-    phi, c_plan = timed("apply_plan", lambda: phases.apply_plan(plan))
+    plan, c_refresh, _ = counted(lambda: phases.refresh(zk, q), torch)
+    phi, c_plan, _ = counted(lambda: phases.apply_plan(plan), torch)
     want = phase_counts(cfg)
-    got = {k: c_refresh[k] + c_plan[k] for k in KERNELS}
-    check(c_refresh == want_refresh and got == want,
-          f"seam[{dt}/{PHASES}]: launches {c_refresh} / {c_plan}")
+    check(ran(c_refresh, want_refresh)
+          and ran(c_plan, dict(want, classify=0)),
+          f"seam[{dt}/{PHASES}]: launches {calls_note(c_refresh)} / "
+          f"{calls_note(c_plan)}")
     check(torch.equal(phi, phases.apply(zk, q)),
           f"seam[{dt}/{PHASES}]: refresh + apply_plan is not bitwise apply")
-    print(f"seam[{dt}/{PHASES}]: launches {c_refresh} / {c_plan}; bitwise "
-          "apply", flush=True)
+    print(f"seam[{dt}/{PHASES}]: launches {calls_note(c_refresh)} / "
+          f"{calls_note(c_plan)}; bitwise apply", flush=True)
 
 
 def host_s(fn, torch):
@@ -1061,11 +1398,9 @@ def tune_phase(dt: str, main: dict, torch) -> None:
               "classify a probe)")
         check(res.stats["overflow"] == 0 and res.trials[-1][2] == 0,
               f"{tag}: tuned caps overflow: {res.trials}")
-        reset_launch_counts()
-        phi, _ = host_s(lambda: tuned.apply_checked(z, q), torch)
-        counts = launch_counts()
-        check(counts == want_counts(),
-              f"{tag}: tuned apply_checked launches {counts}")
+        phi, c, _ = counted(lambda: tuned.apply_checked(z, q), torch)
+        check(ran(c, want_counts()),
+              f"{tag}: tuned apply_checked launches {calls_note(c)}")
         err = rel_error_inf(phi[m["sample"]].to(torch.complex128),
                             m["d_seen"])
         check(err < ACC_BOUND[dt], f"{tag}: accuracy {err:.3e} >= "
@@ -1076,7 +1411,8 @@ def tune_phase(dt: str, main: dict, torch) -> None:
               f"fields {tuned.cfg.tile_boxes}/{tuned.cfg.stage_width}); tune "
               f"{1e3 * secs:.1f} ms host for {probes} probes, "
               f"{1e3 * secs / probes:.1f} ms a probe, classify launches a "
-              f"probe 1; tuned apply_checked launches {counts}, rel_err_inf "
+              f"probe 1; tuned apply_checked launches {calls_note(c)}, "
+              f"rel_err_inf "
               f"{err:.3e}; tuned apply {1e3 * apply_s:.1f} ms (main path "
               f"{1e3 * m['secs']:.1f} ms at caps {m['cfg'].strong_cap}/"
               f"{m['cfg'].weak_cap})", flush=True)
@@ -1099,7 +1435,6 @@ def guard_phase(dt: str, main: dict, torch) -> None:
     timed calls)."""
     from repro_torch.configs import fmm_config
     from repro_torch.core.direct import rel_error_inf
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.solver import FmmSolver, host_health
 
     cfg0 = fmm_config(N, p=P_TERMS, dtype=dt)
@@ -1108,11 +1443,10 @@ def guard_phase(dt: str, main: dict, torch) -> None:
         tag = f"guard[{dt}/{dist}]"
         z, q = m["z"], m["q"]
         g = FmmSolver.build(cfg0).guarded()
-        reset_launch_counts()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            (phi, rep), walk_s = host_s(lambda: g.apply_guarded(z, q), torch)
-        counts = launch_counts()
+            (phi, rep), c, walk_s = counted(
+                lambda: g.apply_guarded(z, q), torch)
         check(caught == [], f"{tag}: the walk warned "
               f"{[str(w.message) for w in caught]}")
         rungs = [a.rung for a in rep.attempts]
@@ -1120,8 +1454,8 @@ def guard_phase(dt: str, main: dict, torch) -> None:
               and rungs[0] == "primary"
               and all(r.startswith("caps*") for r in rungs[1:]),
               f"{tag}: {rep.summary()}")
-        want = {k: v * len(rungs) for k, v in want_counts().items()}
-        check(counts == want, f"{tag}: launches {counts} (want {want})")
+        check(ran(c, want_counts(), len(rungs)),
+              f"{tag}: launches {calls_note(c)} (want {want_counts()} a rung)")
         err = rel_error_inf(phi[m["sample"]].to(torch.complex128),
                             m["d_seen"])
         check(err < ACC_BOUND[dt], f"{tag}: accuracy {err:.3e}")
@@ -1152,7 +1486,7 @@ def guard_phase(dt: str, main: dict, torch) -> None:
         ms = {k: 1e3 * statistics.median(v) for k, v in times.items()}
         print(f"{tag}: {rep.summary()}; caps {g.cfg.strong_cap}/"
               f"{g.cfg.weak_cap} (main path {m['cfg'].strong_cap}/"
-              f"{m['cfg'].weak_cap}); launches {counts}; rel_err_inf "
+              f"{m['cfg'].weak_cap}); launches {calls_note(c)}; rel_err_inf "
               f"{err:.3e}{note}; walk {1e3 * walk_s:.1f} ms; at the final "
               f"caps (host, median of {GUARD_ROUNDS}, alternating order): "
               f"apply {ms['apply']:.1f} ms, apply_with_health "
@@ -1166,19 +1500,17 @@ def guard_phase(dt: str, main: dict, torch) -> None:
     tag = f"guard[{dt}/refresh]"
     z, q = m["z"], m["q"]
     g = FmmSolver.build(cfg0).guarded()
-    reset_launch_counts()
-    (plan, rep), secs = host_s(lambda: g.refresh_guarded(z, q), torch)
-    counts = launch_counts()
+    (plan, rep), c, secs = counted(lambda: g.refresh_guarded(z, q), torch)
     check(rep.ok and rep.retries >= 1 and g.cfg != cfg0
           and rep.attempts[-1].rung == f"caps*{g.cfg.strong_cap}/"
           f"{g.cfg.weak_cap}", f"{tag}: {rep.summary()}")
-    check(counts == {k: int(k == "classify") * len(rep.attempts)
-                     for k in KERNELS}, f"{tag}: launches {counts}")
+    check(ran(c, {k: int(k == "classify") for k in KERNELS},
+              len(rep.attempts)), f"{tag}: launches {calls_note(c)}")
     phi = g.apply_plan(plan)
     check(torch.equal(phi, g.solver.apply(z, q)),
           f"{tag}: apply_plan is not bitwise the promoted apply")
     print(f"{tag}: {rep.summary()} in {1e3 * secs:.1f} ms; launches "
-          f"{counts}", flush=True)
+          f"{calls_note(c)}", flush=True)
 
     def read(plan):
         # the guard's own host read of one plan's margins and overflow
@@ -1221,7 +1553,9 @@ def fault_walk(torch) -> None:
     """The five cases of ``repro_torch.testing.faults``' smoke walk on
     the card at N = 2^16, f64, "cuda" backend, uniform particles: each
     case's rungs, its launches and host ms per rung (the guard's
-    ``rung_hook``; the direct rung's ms is its card cost), a
+    ``rung_hook``; each rung's solver is new, so its program runs
+    eagerly and launches from the host; the direct rung's ms is its card
+    cost), a
     ``BackendDowngradeWarning`` exactly where a plain rung serves the
     answer, phi against the f64 direct sum."""
 
@@ -1230,8 +1564,7 @@ def fault_walk(torch) -> None:
     from repro_torch.data import particles
     from repro_torch.errors import (BackendDowngradeWarning,
                                     NonFiniteInputError)
-    from repro_torch.kernels import (launch_counts, nbody_direct,
-                                     reset_launch_counts)
+    from repro_torch.kernels import nbody_direct
     from repro_torch.solver import FmmSolver
     from repro_torch.testing.faults import smoke_cases
 
@@ -1259,12 +1592,9 @@ def fault_walk(torch) -> None:
 
     @contextlib.contextmanager
     def per_rung(rung):
-        reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        yield
-        torch.cuda.synchronize()
-        log.append((rung, 1e3 * (time.perf_counter() - t0), launch_counts()))
+        with counting(torch) as box:
+            yield
+        log.append((rung, 1e3 * box["secs"], box["calls"]))
 
     print(f"faults N={cfg.n} f64 uniform: caps {S}/{W}, margins {margins}, "
           f"truncation drop {drop}", flush=True)
@@ -1276,7 +1606,7 @@ def fault_walk(torch) -> None:
                 run(z, q)
             except NonFiniteInputError as e:
                 print(f"{tag}: NonFiniteInputError ({e}); primary "
-                      f"{log[0][1]:.1f} ms, launches {log[0][2]}",
+                      f"{log[0][1]:.1f} ms, launches {calls_note(log[0][2])}",
                       flush=True)
                 continue
             check(False, f"{tag}: a poisoned input did not raise")
@@ -1289,8 +1619,10 @@ def fault_walk(torch) -> None:
               and rep.final_backend == backend,
               f"{tag}: {rep.summary()} (want {rungs}, {backend})")
         check([r for r, _, _ in log] == got
-              and [c for _, _, c in log] == launches,
-              f"{tag}: launches per rung {log} (want {launches})")
+              and all(ran(c, w, int(r != "direct"))
+                      for (r, _, c), w in zip(log, launches)),
+              f"{tag}: launches per rung "
+              f"{[(r, calls_note(c)) for r, _, c in log]} (want {launches})")
         # one warning for each rung served by plain torch, naming the
         # rung that failed before it
         plain = [(got[i - 1], r) for i, r in enumerate(got)
@@ -1306,7 +1638,7 @@ def fault_walk(torch) -> None:
         err, tol = rel_err(phi, oracle), (F64_TOL if expect == "direct"
                                           else 1e-6)
         check(err <= tol, f"{tag}: vs direct {err:.3e} > {tol}")
-        per = ", ".join(f"{r} {ms:.1f} ms {c}" for r, ms, c in log)
+        per = ", ".join(f"{r} {ms:.1f} ms {calls_note(c)}" for r, ms, c in log)
         print(f"{tag}: {rep.summary()}; vs direct {err:.3e}; per rung: "
               f"{per}; {len(said)} downgrade warning(s)", flush=True)
         if expect == "direct":
@@ -1325,12 +1657,11 @@ def fault_walk(torch) -> None:
 def dispatch_log(torch):
     """Record every guarded batched dispatch (the serving plane's one
     call a dispatch, ``GuardedSolver.apply_batched_guarded``): its shape
-    class, guard report, launches per kernel, the guard's trace counts
-    before and after, whether the primary solver stayed, the leaf
-    layouts built during it and its host ms (ending in a synchronize).
-    Restores the method on exit."""
+    class, guard report, ``Calls``, the guard's trace counts before and
+    after, whether the primary solver stayed, the leaf layouts built
+    during it and its host ms (ending in a synchronize). Restores the
+    method on exit."""
     from repro_torch.core.topology import layout_builds
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.solver import GuardedSolver
 
     real = GuardedSolver.apply_batched_guarded
@@ -1339,14 +1670,9 @@ def dispatch_log(torch):
     def logged(self, z, q):
         solver, before, builds = self.solver, dict(self.trace_counts), \
             layout_builds()
-        reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        phi, rep = real(self, z, q)
-        torch.cuda.synchronize()
+        (phi, rep), c, secs = counted(lambda: real(self, z, q), torch)
         log.append(dict(key=(self.cfg.n, z.shape[0]), cfg=self.cfg,
-                        report=rep, launches=launch_counts(),
-                        ms=1e3 * (time.perf_counter() - t0),
+                        report=rep, calls=c, ms=1e3 * secs,
                         trace=(before, dict(self.trace_counts)),
                         same_solver=self.solver is solver,
                         builds=layout_builds() - builds))
@@ -1427,11 +1753,11 @@ def serve_wave(plane, wave, tag: str, torch, seen=None, full_acc=True):
         check(err < ACC_BOUND[cfg.dtype],
               f"{tag}: {rep.summary()} rel_err_inf {err:.3e}")
     for d in log:
-        want = {k: v * len(d["report"].attempts)
-                for k, v in serve_counts(d["cfg"]).items()}
-        check(d["launches"] == want and d["report"].degradations == (),
+        want = serve_counts(d["cfg"])
+        check(ran(d["calls"], want, len(d["report"].attempts))
+              and d["report"].degradations == (),
               f"{tag}: dispatch {d['key']} {d['report'].summary()} "
-              f"launches {d['launches']} (want {want})")
+              f"launches {calls_note(d['calls'])} (want {want} an attempt)")
     if seen is not None:
         for phi, rep in results:
             if rep.bucket is not None:
@@ -1454,13 +1780,16 @@ def serve_wave(plane, wave, tag: str, torch, seen=None, full_acc=True):
                          for k, v in s._asdict().items())
                 for b, s in after.items()}
     hits = sum(c[0] for c in counters.values())
+    kinds = [k for d in log for _, k, _ in d["calls"].programs]
+    kinds = {k: kinds.count(k) for k in ("eager", "capture", "replay")}
     out = dict(requests=len(wave), clean=clean, dispatches=len(log),
                rps=clean / wall, p50=1e3 * float(np.percentile(lat, 50)),
                p99=1e3 * float(np.percentile(lat, 99)),
                dispatch_ms=statistics.median(d["ms"] for d in log),
                padded=(rows - real) / rows if rows else 0.0, worst=worst,
                builds=builds, keys={d["key"] for d in log}, wall=wall,
-               attempts=sum(len(d["report"].attempts) for d in log))
+               attempts=sum(len(d["report"].attempts) for d in log),
+               kinds=kinds)
     print(f"{tag}: {out['requests']} requests ({clean} clean), "
           f"{out['dispatches']} dispatches ({out['attempts']} guard "
           f"attempts; {hits} cache hits), per bucket (hits, misses, "
@@ -1468,7 +1797,10 @@ def serve_wave(plane, wave, tag: str, torch, seen=None, full_acc=True):
           f"{out['rps']:.2f} clean requests/s ({wall:.3f} s); latency p50 "
           f"{out['p50']:.2f} ms, p99 {out['p99']:.2f} ms; median dispatch "
           f"{out['dispatch_ms']:.2f} ms (host); layouts built {builds}; "
-          f"worst rel_err_inf {worst:.3e}", flush=True)
+          f"worst rel_err_inf {worst:.3e}; program calls by kind {kinds}; "
+          f"programs held {programs_held()}, reserved "
+          f"{torch.cuda.memory_reserved()} B",
+          flush=True)
     return out
 
 
@@ -1588,7 +1920,8 @@ def register_phases(torch):
 def per_phase_path(dt: str, main: dict, torch) -> dict:
     """The per-phase backend on the main path's problems and configs:
     launches per kernel, accuracy, and agreement with the main path (and
-    in f64 with the reference backend). Returns the launch totals."""
+    in f64 with the reference backend). Returns the launch totals from
+    the host."""
     from repro_torch.core.direct import rel_error_inf
     from repro_torch.solver import FmmSolver
 
@@ -1596,17 +1929,18 @@ def per_phase_path(dt: str, main: dict, torch) -> dict:
     for dist in DISTS:
         m = main[dist]
         tag = f"phases[{dt}/{dist}]"
-        phi, counts, cfg, solver = grown_apply(
+        phi, calls, cfg, solver, first_s = grown_apply(
             lambda c: FmmSolver.build(c, backend=PHASES), m["cfg"], m["z"],
             m["q"], tag)
         check(cfg == m["cfg"], f"{tag}: caps differ from the main path's")
         check(solver.dispatched["apply"] == PHASES,
               f"dispatched {solver.dispatched}")
         want = phase_counts(cfg)
-        check(counts == want, f"{tag}: launches per apply {counts} "
+        check(ran(calls, want), f"{tag}: launches per apply "
+              f"{calls_note(calls)} "
               f"(want {want})")
-        for k, v in counts.items():
-            totals[k] += v
+        for k in KERNELS:
+            totals[k] += calls.host[k]
         secs = median_apply_s(solver, m["z"], m["q"], phi, tag, torch)
         err = rel_error_inf(phi[m["sample"]].to(torch.complex128),
                             m["d_seen"])
@@ -1617,8 +1951,10 @@ def per_phase_path(dt: str, main: dict, torch) -> dict:
             note += f", vs reference backend {vs_ref:.3e}"
             check(vs_main <= F64_TOL and vs_ref <= F64_TOL,
                   f"{tag}: {note} (limit {F64_TOL})")
-        print(f"{tag}: launches {counts}; apply {1e3 * secs:.1f} ms "
-              f"(main path {1e3 * m['secs']:.1f} ms); rel_err_inf vs "
+        print(f"{tag}: launches {calls_note(calls)}; apply "
+              f"{1e3 * secs:.1f} ms "
+              f"(replayed; the apply_checked above {1e3 * first_s:.1f} ms; "
+              f"main path {1e3 * m['secs']:.1f} ms); rel_err_inf vs "
               f"direct {err:.3e} (positions in {dt}); {note}", flush=True)
         check(err < ACC_BOUND[dt], f"{tag}: accuracy {err:.3e} >= "
               f"{ACC_BOUND[dt]}")
@@ -1629,10 +1965,11 @@ def per_phase_path(dt: str, main: dict, torch) -> dict:
 
 def batched_phase(cfg, torch, backend: str = "cuda") -> dict:
     """``apply_batched`` at B = 4 on ``backend``: one apply's launches,
-    every row bitwise equal to its own ``apply``. Returns the launches."""
+    every row bitwise equal to its own ``apply``, the first call (eager),
+    the second (its capture) and a replay timed. Returns the launches
+    from the host."""
     from repro_torch.data import particles
     from repro_torch.errors import CapOverflowError
-    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.solver import FmmSolver
     from repro_torch.solver.guard import grow_caps
 
@@ -1642,32 +1979,39 @@ def batched_phase(cfg, torch, backend: str = "cuda") -> dict:
     qb = torch.stack([q for _, q in probs])
     while True:
         solver = FmmSolver.build(cfg, backend=backend)
-        reset_launch_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         try:
-            phib = solver.apply_batched_checked(zb, qb)
+            phib, c, dt_b = counted(
+                lambda: solver.apply_batched_checked(zb, qb), torch)
         except CapOverflowError as e:
             cfg = grow_caps(cfg, e.margins)
             print(f"batched[{backend}]: caps overflow {e.margins}; raised "
                   f"to strong_cap={cfg.strong_cap} weak_cap={cfg.weak_cap}",
                   flush=True)
             continue
-        torch.cuda.synchronize()
-        dt_b = time.perf_counter() - t0
-        counts = launch_counts()
         break
     want = want_counts() if backend == "cuda" else phase_counts(cfg)
-    check(counts == want,
-          f"batched[{backend}]: launches {counts} (want {want} for B = 4)")
+    check(ran(c, want),
+          f"batched[{backend}]: launches {calls_note(c)} (want {want} for "
+          "B = 4)")
     worst = 0.0
     for b, (z, q) in enumerate(probs):
         row = solver.apply(z, q)
         worst = max(worst, float((phib[b] - row).abs().max()))
-    print(f"batched[{backend}/{cfg.dtype}] B=4: launches {counts}; "
-          f"{1e3 * dt_b:.1f} ms; max |row - apply| = {worst:.3e}", flush=True)
+    again = []
+    for _ in range(2):
+        out, c2, secs = counted(lambda: solver.apply_batched_checked(zb, qb),
+                                torch)
+        check(torch.equal(out, phib) and ran(c2, want),
+              f"batched[{backend}]: {calls_note(c2)}, bitwise "
+              f"{torch.equal(out, phib)}")
+        again.append((secs, calls_note(c2)))
+    print(f"batched[{backend}/{cfg.dtype}] B=4: launches {calls_note(c)}; "
+          f"first "
+          f"call {1e3 * dt_b:.1f} ms, then {1e3 * again[0][0]:.1f} ms "
+          f"({again[0][1]}) and {1e3 * again[1][0]:.1f} ms "
+          f"({again[1][1]}); max |row - apply| = {worst:.3e}", flush=True)
     check(worst == 0.0, "batched rows differ from single applies")
-    return counts
+    return c.host
 
 
 def direct_phase(rows: list, main: dict, torch) -> None:
@@ -1734,7 +2078,7 @@ def direct_phase(rows: list, main: dict, torch) -> None:
             cfg = fmm_config(n, p=P_TERMS, dtype=dt,
                              nlevels=max(1, num_levels_for(n, 45)))
             z, q = particles("uniform", n, SEED)
-            phi, _, cfg, solver = grown_apply(
+            phi, _, cfg, solver, first_s = grown_apply(
                 lambda c: FmmSolver.build(c), cfg, z, q, f"sweep[{dt}/{n}]")
             fmm_s = median_apply_s(solver, z, q, phi, f"sweep[{dt}/{n}]",
                                    torch)
@@ -1744,7 +2088,10 @@ def direct_phase(rows: list, main: dict, torch) -> None:
                              warmup=1)
             table.append((n, cfg.nlevels, 1e3 * fmm_s, d_ms))
             print(f"sweep[{dt}] N={n} levels={cfg.nlevels}: FMM apply "
-                  f"{1e3 * fmm_s:.3f} ms, direct {d_ms:.3f} ms", flush=True)
+                  f"{1e3 * fmm_s:.3f} ms (replayed; its first "
+                  f"apply_checked {1e3 * first_s:.3f} ms), direct "
+                  f"{d_ms:.3f} ms",
+                  flush=True)
         faster = [fmm < d for _, _, fmm, d in table]
         even = next((table[i][0] for i in range(len(table))
                      if all(faster[i:])), None)
@@ -1799,30 +2146,43 @@ def main() -> int:
         wide = m2l_wide_phase(dt, torch)
         next(r for r in rows if r["name"] == f"m2l_{dt}")["wide"] = {
             str(W): v for W, v in wide.items()}
+    observe_programs()
     served, paths = {}, {}
     for dt in ("f32", "f64"):
         totals, served[dt] = main_path(dt, torch)
-        print(f"main[{dt}]: launches {totals}; apply ms "
-              f"{[round(1e3 * m['secs'], 1) for m in served[dt].values()]}",
+        print(f"main[{dt}]: launches from the host {totals}; apply ms "
+              f"(replayed) "
+              f"{[round(1e3 * m['secs'], 1) for m in served[dt].values()]}, "
+              f"first apply_checked ms "
+              f"{[round(1e3 * m['first_s'], 1) for m in served[dt].values()]}",
               flush=True)
         paths[dt] = {k: totals[k] for k in
                      ("classify", "m2l", "p2l", "eval_fused")}
+    memory_line("main", torch)
     register_phases(torch)
+    for dt in ("f32", "f64"):
+        graphs_phase(dt, served[dt], torch)
+    memory_line("graphs", torch)
     for dt in ("f32", "f64"):
         seam_phase(dt, served[dt], torch)
     for dt in ("f32", "f64"):
         tune_phase(dt, served[dt], torch)
+    memory_line("seam+tune", torch)
     for dt in ("f32", "f64"):
         guard_phase(dt, served[dt], torch)
+    memory_line("guard", torch)
     fault_walk(torch)
     serve_phase(torch)
+    memory_line("faults+serve", torch)
     for dt in ("f32", "f64"):
         totals = per_phase_path(dt, served[dt], torch)
-        print(f"phases[{dt}]: launches {totals}", flush=True)
+        print(f"phases[{dt}]: launches from the host {totals}", flush=True)
         paths[dt].update(p2p=totals["p2p"], l2p=totals["l2p"])
     for backend in ("cuda", PHASES):
         batched_phase(served["f32"][DISTS[-1]]["cfg"], torch, backend)
+    memory_line("phases+batched", torch)
     direct_phase(rows, served, torch)
+    memory_line("direct", torch)
     for row in rows:
         base, rdt = row["name"].rsplit("_", 1)
         if base != "nbody":

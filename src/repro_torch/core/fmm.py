@@ -34,7 +34,6 @@ downward pass, and unless the evaluation is fused, ``fmm::l2p``,
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -45,6 +44,7 @@ from ..device import resolve_device
 from ..errors import CapOverflowError
 from . import expansions as E
 from .config import FmmConfig
+from .constants import device_constant
 from .topology import (MARGIN_CLASSES, Connectivity, Tree,
                        build_connectivity, build_tree, connectivity_stats,
                        leaf_layout)
@@ -280,10 +280,11 @@ def _apply_p2l(local, tree, conn, cfg: FmmConfig, rho, p2l_impl):
     return local + p2l_impl(tree, conn, cfg, rho[cfg.nlevels])
 
 
-@functools.lru_cache(maxsize=16)
+@device_constant(maxsize=16)
 def m2l_mat(p: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """The constant (p+1, p+1) M2L matrix H as a tensor, built once per
-    (p, dtype, device) and shared by every later call (read only)."""
+    (p, dtype, device) while any holder keeps it, and shared by every
+    later call (read only)."""
     return torch.as_tensor(E.m2l_matrix(p), dtype=dtype, device=device)
 
 
@@ -433,15 +434,17 @@ def p2p_sweep(phi, tree: Tree, conn: Connectivity,
 # ---------------------------------------------------------------------------
 
 def fmm_build(z: torch.Tensor, q: torch.Tensor, cfg: FmmConfig,
-              leaf_classify_impl=None) -> FmmPlan:
+              leaf_classify_impl=None, connect=None) -> FmmPlan:
     """Topological phase of B problems ((B, N) complex z, q): sort
     (single-sort tree build) + connect. ``leaf_classify_impl`` replaces
-    the leaf-level classification (the CUDA topology kernel)."""
+    the leaf-level classification (the CUDA topology kernel);
+    ``connect`` the connectivity builder (default: this module's
+    ``build_connectivity`` binding, read at the call)."""
+    connect = connect or build_connectivity
     with record_function("fmm::tree"):
         tree = build_tree(z, q, cfg)
     with record_function("fmm::connectivity"):
-        conn = build_connectivity(tree, cfg,
-                                  leaf_classify_impl=leaf_classify_impl)
+        conn = connect(tree, cfg, leaf_classify_impl=leaf_classify_impl)
     return FmmPlan(tree=tree, conn=conn)
 
 

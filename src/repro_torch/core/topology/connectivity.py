@@ -211,7 +211,7 @@ def build_connectivity(tree: Tree, cfg: FmmConfig,
         cand = (torch.where(pvalid, parent_strong,
                             torch.zeros_like(parent_strong))[..., None] * 4
                 + four).view(B, nb, 4 * S)
-        valid = pvalid.repeat_interleave(4, dim=-1)
+        valid = pvalid[..., None].expand(B, nb, S, 4).reshape(B, nb, 4 * S)
 
         if l == L:
             leaf_keys = classify(cand, valid, tree.centers[l],

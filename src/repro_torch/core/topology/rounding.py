@@ -80,7 +80,10 @@ def fma_rn(a, b, c) -> torch.Tensor:
     dev = next(x.device for x in (a, b, c) if isinstance(x, torch.Tensor))
 
     def as64(x):
-        return torch.as_tensor(x, dtype=dt, device=dev).to(torch.float64)
+        # a Python float is filled on the device (no host copy)
+        t = (x.to(dt) if isinstance(x, torch.Tensor)
+             else torch.full((), x, dtype=dt, device=dev))
+        return t.to(torch.float64)
 
     a64, b64, c64 = as64(a), as64(b), as64(c)
     if dt == torch.float32:

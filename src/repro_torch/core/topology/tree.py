@@ -25,14 +25,13 @@ seed build of one lexicographic sort a split, kept as its oracle.
 from __future__ import annotations
 
 import dataclasses
-import functools
-import weakref
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..config import FmmConfig, level_bounds, segment_ids, split_bounds
+from ..constants import device_constant
 from .rounding import hypot_xla
 
 
@@ -89,12 +88,12 @@ def build_tree(z: torch.Tensor, q: torch.Tensor, cfg: FmmConfig) -> Tree:
     else:
         ax = torch.argsort(x, dim=-1, stable=True)      # full sort 1
         ay = torch.argsort(y, dim=-1, stable=True)      # full sort 2
-        sb = split_bounds(N, 2 * L)
+        tables = split_tables(N, L, dev)
         ar = torch.arange(N, device=dev)
         split_x = None
         for s in range(2 * L):
-            b = _const(sb[s], dev)                       # (2**s + 1,) bounds
-            mids = _const(sb[s + 1][1::2], dev)          # median ranks
+            b = tables.bounds[s]                         # (2**s + 1,) bounds
+            mids = tables.mids[s]                        # median ranks
             # static per-position segment id / start / median / offset,
             # expanded on the device from the (2**s + 1) bounds
             sid = torch.repeat_interleave(
@@ -212,6 +211,31 @@ def build_tree_lexsort(z: torch.Tensor, q: torch.Tensor,
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
+class SplitTables:
+    """The static tables of the 2 * nlevels median splits of one
+    (N, nlevels) on one device: for split s, the 2**s + 1 segment bounds
+    and the 2**s median ranks (views of one device tensor)."""
+
+    bounds: tuple            # split s: (2**s + 1,) int64
+    mids: tuple              # split s: (2**s,) int64
+
+
+@device_constant(maxsize=8)
+def split_tables(n: int, nlevels: int, device: torch.device) -> SplitTables:
+    """``split_bounds`` and its median ranks as device tensors, copied
+    once per (N, nlevels, device) while any holder keeps them."""
+    sb = split_bounds(n, 2 * nlevels)
+    parts = []
+    for s in range(2 * nlevels):
+        parts += [sb[s], sb[s + 1][1::2]]
+    if not parts:
+        return SplitTables(bounds=(), mids=())
+    views = torch.split(_const(np.concatenate(parts), device),
+                        [len(a) for a in parts])
+    return SplitTables(bounds=views[0::2], mids=views[1::2])
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
 class LeafLayout:
     """The static dense leaf layout of one (N, nlevels) on one device."""
 
@@ -223,12 +247,6 @@ class LeafLayout:
     lid: torch.Tensor        # (N,) int64 leaf box owning each rank
 
 
-# Every layout still referenced, by (N, nlevels, device). A solver holds
-# the layouts of the shapes it has prepared (``FmmSolver._prepare``), so
-# a layout lives as long as a solver that reads it, however many other
-# sizes are served in between; ``leaf_layout``'s LRU keeps the most
-# recent ones besides, for callers outside a solver.
-_LAYOUTS: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
 _LAYOUT_BUILDS = [0]
 
 
@@ -238,20 +256,13 @@ def layout_builds() -> int:
     return _LAYOUT_BUILDS[0]
 
 
-@functools.lru_cache(maxsize=8)
+@device_constant(maxsize=8)
 def leaf_layout(n: int, nlevels: int, device: torch.device) -> LeafLayout:
     """``leaf_particle_index`` and its inverse as device tensors, built
     once per (N, nlevels, device) while any holder keeps it — the layout
-    depends on nothing else."""
-    key = (n, nlevels, device)
-    lay = _LAYOUTS.get(key)
-    if lay is None:
-        lay = _LAYOUTS[key] = _build_leaf_layout(n, nlevels, device)
-    return lay
-
-
-def _build_leaf_layout(n: int, nlevels: int,
-                       device: torch.device) -> LeafLayout:
+    depends on nothing else. A solver's programs hold the layouts they
+    read, so a layout lives as long as a program that reads it, however
+    many other sizes are served in between."""
     _LAYOUT_BUILDS[0] += 1
     cfg = FmmConfig(n=n, nlevels=nlevels)
     idx = leaf_particle_index(cfg)

@@ -16,7 +16,11 @@ Every exported entry point takes tensor pointers and the CUDA stream as
 ``cudaGetLastError()`` after its launch; ``CudaLibrary.launch`` raises if
 that is not 0 and otherwise counts one launch. The count is the evidence
 that a run went through the kernel: it rises only where a kernel was
-actually enqueued. Each launch runs inside a ``torch.profiler``
+actually enqueued. A call made while the stream is being captured into
+a CUDA graph enqueues nothing: it counts in ``recorded_counts()``
+instead, and the graph's replays launch the kernel without a host call
+(``repro_torch.solver.program`` counts those). Each launch runs inside a
+``torch.profiler``
 ``record_function`` range ``kernel::<name>``, so a profiler trace
 attributes the kernel's device time to the range around it (the
 pipeline's ``fmm::<phase>`` ranges).
@@ -65,6 +69,7 @@ class CudaLibrary:
         self.name = name
         self.signatures = signatures      # symbol -> argtypes (stream last)
         self.launches = 0
+        self.recorded = 0
         self.build_log = ""
         self._lib = None
         LIBRARIES[name] = self
@@ -128,7 +133,9 @@ class CudaLibrary:
 
     def launch(self, symbol: str, *args) -> None:
         """Call ``symbol`` with tensors (as device pointers), ints and
-        floats, on the current stream of the first tensor's device."""
+        floats, on the current stream of the first tensor's device
+        (counted as a launch, or as recorded while that stream captures a
+        CUDA graph)."""
         dev = next(a.device for a in args if isinstance(a, torch.Tensor))
         stream = torch.cuda.current_stream(dev).cuda_stream
         conv = []
@@ -150,7 +157,10 @@ class CudaLibrary:
             msg = lib.repro_error_string(rc).decode()
             raise RuntimeError(f"{self.name}:{symbol} launch failed: "
                                f"{msg} (cudaError {rc})")
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            self.recorded += 1
+        else:
+            self.launches += 1
 
 
 def build_all() -> dict[str, str]:
@@ -170,6 +180,12 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for lib in LIBRARIES.values():
         lib.launches = 0
+
+
+def recorded_counts() -> dict[str, int]:
+    """Launches per kernel recorded into CUDA graphs while capturing
+    (never reset: a program reads the difference around its capture)."""
+    return {name: lib.recorded for name, lib in LIBRARIES.items()}
 
 
 def check_tensors(*tensors, dtype=None, device=None) -> None:

@@ -18,8 +18,11 @@ one device:
     (``info``), the serving analogue of ``FmmSolver.cache_info()``.
 
 The reference's keyed programs are jit-compiled; the port's entries hold
-eager solvers that build their device constants once per shape (the leaf
-layout lives as long as a solver that holds it, ``FmmSolver._prepare``).
+solvers whose programs are captured as CUDA graphs once per shape
+(``repro_torch.solver.program``): on the card ``warm`` runs the batched
+health program of its (bucket, B) twice, which captures it, and every
+guarded dispatch of that shape class replays it. The leaf layout lives
+as long as a solver that holds it (``FmmSolver._prepare``).
 """
 from __future__ import annotations
 
@@ -59,8 +62,8 @@ class PlanCache:
     ``device`` (default: the CUDA card; one cache serves one device).
 
     ``get`` returns ``(guarded_solver, hit)``; ``warm`` prepares the
-    entry's batched health entry point on synthetic data so the first
-    real request finds its device constants built.
+    entry's batched health program on synthetic data (on the card it
+    captures it) so the first real request finds it ready.
     """
 
     def __init__(self, cfg_factory: Callable[[int], FmmConfig],
@@ -122,9 +125,10 @@ class PlanCache:
     def warm(self, bucket: int, batch: int,
              seed: int = 0) -> GuardedSolver:
         """Prepare one shape class ahead of traffic: run the batched
-        health entry point (what guarded dispatch runs) once on synthetic
-        particles and wait for the device. Idempotent; returns the
-        cached entry."""
+        health entry point (what guarded dispatch runs) on synthetic
+        particles, once on the CPU and twice on the card (the second run
+        captures its program), and wait for the device. Idempotent;
+        returns the cached entry."""
         from ..data.synthetic import particles_numpy
 
         guarded, _ = self.get(bucket, batch)
@@ -135,6 +139,7 @@ class PlanCache:
             device=self.device) for a in (z, q))
         guarded.solver.apply_batched_with_health(zb, qb)
         if self.device.type == "cuda":
+            guarded.solver.apply_batched_with_health(zb, qb)
             torch.cuda.synchronize(self.device)
         return guarded
 

@@ -9,6 +9,8 @@ the guarded recovery ladder.
     phib = solver.apply_batched(zb, qb)
     plan = solver.refresh(z, q)              # topology only
     phi = solver.apply_plan(plan)            # evaluation only
+    solver._compiled_program_count()         # programs held (one per
+    solver._release_executables()            # entry point and shape)
     solver = solver.tune(z_sample)           # fit the list caps
     phi, report = solver.guarded().apply_guarded(z, q)
 """
@@ -17,6 +19,8 @@ from .backends import (BATCHED_DISPATCH, Backend, available_backends,
                        get_backend, register_backend)
 from ..device import resolve_device
 from .guard import GuardAttempt, GuardedSolver, GuardReport
+from .program import (Program, program_budget, program_memory,
+                      set_program_budget)
 from .solver import CacheInfo, FmmSolver, host_health, raise_unhealthy
 
 __all__ = [
@@ -25,4 +29,5 @@ __all__ = [
     "resolve_device", "Backend", "BATCHED_DISPATCH", "available_backends",
     "get_backend", "register_backend",
     "TuneResult", "probe_caps", "tune_caps", "tune_tiles",
+    "Program", "program_budget", "program_memory", "set_program_budget",
 ]

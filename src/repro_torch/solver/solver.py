@@ -15,6 +15,17 @@ topology/evaluation seam:
 its order, so their phi is bitwise ``apply``'s; in between the caller
 can read ``plan.conn.overflow`` or ``stats`` without a second build.
 
+Each entry point runs as a compiled program, one per problem shape
+(``solver.program``): on the card the first call at a shape (B, dtype)
+runs the pipeline eagerly, the second captures it as a CUDA graph and
+replays it, and every later call replays it; a replay returns fresh
+tensors, never a graph buffer. On the CPU the same programs run the
+pipeline eagerly. ``_compiled_program_count()`` counts a solver's
+programs, and ``_release_executables()`` drops them (graphs, static
+buffers, memory pool); LRU eviction, ``cache_clear`` and the programs'
+memory budget (``program.program_budget``) release them, and a released
+solver captures again at its second call at a shape.
+
 The solver runs on ``cuda`` unless the caller passes ``device="cpu"``;
 on a machine without a CUDA card the default raises instead of falling
 back to the CPU. With the "cuda" backend each of the four kernels of the
@@ -41,20 +52,26 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from ..core import fmm as _fmm
 from ..core.config import FmmConfig
 from ..core.fmm import (HEALTH_CLASSES, FmmPlan, Health, fmm_build,
                         fmm_evaluate, health_of, m2l_mat, unsort)
 from ..core.topology import connectivity_stats, leaf_layout
+from ..core.topology.tree import split_tables
 from ..device import resolve_device
 from ..errors import (BackendDowngradeWarning, CapOverflowError, DTypeError,
                       NonFiniteInputError, NonFiniteOutputError, ShapeError)
 from .autotune import TuneResult, tune_caps, tune_tiles
 from .backends import Backend, get_backend
+from .program import ProgramSet
 
 # LRU of solvers, keyed by (cfg, resolved backend name, device), so
-# "auto" shares the entry of whatever backend it resolves to. An evicted
-# solver stays usable by whoever holds it; hit/miss/eviction traffic is
-# read with ``FmmSolver.cache_info()``.
+# "auto" shares the entry of whatever backend it resolves to. Eviction
+# (and cache_clear) releases a solver's programs, so they cannot strand
+# device memory; an evicted solver stays usable by whoever holds it and
+# captures again at its second call at a shape. The programs' graph
+# pools are bounded in bytes apart from this count (``solver.program``).
+# Hit/miss/eviction traffic is read with ``FmmSolver.cache_info()``.
 _CACHE: OrderedDict = OrderedDict()
 _CACHE_MAX = 64
 _CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
@@ -104,6 +121,15 @@ def raise_unhealthy(h: dict, cfg: FmmConfig, entry: str = "apply") -> None:
             "expansion fault")
 
 
+#: The halves of the pipeline each entry point's program runs.
+ENTRIES = {"apply": ("build", "evaluate"),
+           "apply_batched": ("build", "evaluate"),
+           "apply_with_health": ("build", "evaluate"),
+           "apply_batched_with_health": ("build", "evaluate"),
+           "refresh": ("build",),
+           "apply_plan": ("evaluate",)}
+
+
 class FmmSolver:
     """FMM evaluator for one ``FmmConfig``, backend and device. Prefer
     ``FmmSolver.build``, which returns the cached instance.
@@ -111,12 +137,16 @@ class FmmSolver:
     ``trace_counts`` counts, per half of the pipeline ("build": tree and
     connectivity; "evaluate": upward, downward, evaluation), the problem
     shapes (B, dtype, device) this solver has prepared that half for:
-    the first call at a new shape builds the device constants the half
-    reads (the static leaf layout; the M2L matrix) and later calls at
-    that shape reuse them. Eager torch compiles nothing, so this is the
-    port's counterpart of the reference's trace count: a steady-shape
-    time-stepping loop reads ``{"build": 1, "evaluate": 1}``, a new B
-    raises both. Calls are not counted.
+    the first program at a new shape builds the device constants the
+    half reads (the static leaf layout and split tables; the M2L matrix)
+    and later programs at that shape reuse them. This is the port's
+    counterpart of the reference's trace count: a steady-shape
+    time-stepping loop reads ``{"build": 1, "evaluate": 1}`` and a new B
+    raises both. Calls are not counted. One departure: a release keeps
+    the constants, so programs made again after
+    ``_release_executables`` count nothing, where the reference's
+    ``refresh`` and ``apply_plan`` trace again after ``clear_cache`` and
+    raise its counts by one each.
     """
 
     def __init__(self, cfg: FmmConfig, backend: str = "auto", device=None):
@@ -147,8 +177,8 @@ class FmmSolver:
                            "apply_batched": batched_name}
         self._warned_batched_fallback = False
         self.trace_counts = {"build": 0, "evaluate": 0}
-        self._prepared: set = set()
-        self._layouts: dict = {}
+        self._prepared: dict = {}
+        self._programs = ProgramSet()
         self.tune_result: Optional[TuneResult] = None
 
     # -- construction -------------------------------------------------------
@@ -165,8 +195,9 @@ class FmmSolver:
             _CACHE_STATS["misses"] += 1
             solver = _CACHE[key] = cls(cfg, backend, dev)
             while len(_CACHE) > _CACHE_MAX:
-                _CACHE.popitem(last=False)
+                _, evicted = _CACHE.popitem(last=False)
                 _CACHE_STATS["evictions"] += 1
+                evicted._release_executables()
         else:
             _CACHE_STATS["hits"] += 1
             _CACHE.move_to_end(key)
@@ -174,12 +205,40 @@ class FmmSolver:
 
     @classmethod
     def cache_clear(cls) -> None:
+        for solver in _CACHE.values():
+            solver._release_executables()
         _CACHE.clear()
         _CACHE_STATS.update(hits=0, misses=0, evictions=0)
+
+    def _release_executables(self) -> None:
+        """Drop this solver's programs (every entry point, health twins
+        included): graphs, static buffers and memory pool; the memory
+        goes back to the caching allocator (``torch.cuda.empty_cache()``
+        then returns it to the card). The device constants stay. The
+        solver stays usable: its next call at a shape runs eagerly and
+        the one after captures again."""
+        self._programs.release()
+
+    def _compiled_program_count(self) -> int:
+        """How many programs this solver holds (one per entry point and
+        problem shape)."""
+        return len(self._programs)
+
+    def programs(self) -> dict:
+        """This solver's programs by key ``(entry, B, dtype, device)``:
+        each with the host launches of its first run (``launches``), the
+        launches its capture recorded (``recorded``), its ``calls`` and
+        its graph ``replays``."""
+        return self._programs.items()
 
     @classmethod
     def cache_size(cls) -> int:
         return len(_CACHE)
+
+    @classmethod
+    def _cached_solvers(cls) -> list:
+        """The solvers in the ``build`` cache, least recent first."""
+        return list(_CACHE.values())
 
     @classmethod
     def cache_info(cls) -> CacheInfo:
@@ -191,45 +250,71 @@ class FmmSolver:
 
     # -- the pipeline -------------------------------------------------------
 
-    def _prepare(self, half: str, t: torch.Tensor) -> None:
-        """Build the device constants of ``half`` ("build" or "evaluate")
-        the first time it runs at the shape of ``t`` (B, dtype, device),
-        counting it in ``trace_counts``."""
+    def _prepare(self, half: str, t: torch.Tensor) -> tuple:
+        """The device constants of ``half`` ("build" or "evaluate") at the
+        shape of ``t`` (B, dtype, device), built and counted in
+        ``trace_counts`` the first time and held for this solver's life,
+        so the pipeline's constant caches always find them."""
         key = (half, t.shape[0], t.dtype, t.device)
-        if key in self._prepared:
-            return
+        if key not in self._prepared:
+            cfg = self.cfg
+            lay = leaf_layout(cfg.n, cfg.nlevels, t.device)
+            self._prepared[key] = (
+                (lay, split_tables(cfg.n, cfg.nlevels, t.device))
+                if half == "build" else
+                (lay, m2l_mat(cfg.p, cfg.torch_real, t.device)))
+            self.trace_counts[half] += 1
+        return self._prepared[key]
+
+    def _pipeline(self, entry: str):
+        """The function the program of ``entry`` runs. It binds the
+        connectivity builder of ``core.fmm`` as it is now, so a program
+        runs what existed when it was made (a capture freezes it on the
+        card)."""
         cfg = self.cfg
-        # held here, so the layout lives as long as this solver
-        self._layouts[t.device] = leaf_layout(cfg.n, cfg.nlevels, t.device)
-        if half == "evaluate":
-            m2l_mat(cfg.p, cfg.torch_real, t.device)
-        self._prepared.add(key)
-        self.trace_counts[half] += 1
+        connect = _fmm.build_connectivity
+        if "batched" in entry:
+            impls, topo = self._batched_impls, self._batched_topo
+        else:
+            impls, topo = self._impls, self._topo
 
-    def _build(self, z: torch.Tensor, q: torch.Tensor, topo: dict) -> FmmPlan:
-        self._prepare("build", z)
-        return fmm_build(z, q, self.cfg, **topo)
+        def build(z, q) -> FmmPlan:
+            return fmm_build(z, q, cfg, connect=connect, **topo)
 
-    def _evaluate(self, plan: FmmPlan, impls: dict) -> torch.Tensor:
-        """(B, N) phi of a plan, in input order."""
-        self._prepare("evaluate", plan.tree.z)
-        phi = fmm_evaluate(plan, self.cfg, **impls)
-        with record_function("fmm::unsort"):
-            return unsort(phi, plan.tree.perm)
+        def evaluate(plan: FmmPlan) -> torch.Tensor:
+            phi = fmm_evaluate(plan, cfg, **impls)
+            with record_function("fmm::unsort"):
+                return unsort(phi, plan.tree.perm)
 
-    def _core(self, z: torch.Tensor, q: torch.Tensor, with_health: bool,
-              batched: bool = False):
-        """(B, N) -> (B, N) phi in input order (+ the health plane):
-        ``_build`` then ``_evaluate``, the halves ``refresh`` and
-        ``apply_plan`` run."""
-        impls, topo = ((self._batched_impls, self._batched_topo) if batched
-                       else (self._impls, self._topo))
-        plan = self._build(z, q, topo)
-        phi = self._evaluate(plan, impls)
-        if with_health:
-            with record_function("fmm::health"):
-                return phi, health_of(plan, z, q, phi)
-        return phi
+        if entry == "refresh":
+            return build
+        if entry == "apply_plan":
+            return evaluate
+        with_health = entry.endswith("with_health")
+
+        def core(z, q):
+            plan = build(z, q)
+            phi = evaluate(plan)
+            if with_health:
+                with record_function("fmm::health"):
+                    return phi, health_of(plan, z, q, phi)
+            return phi
+
+        return core
+
+    def _run(self, entry: str, *args):
+        """``entry``'s program at the shape of ``args`` (made at the first
+        call, with the device constants it reads) run on ``args``: (B, N)
+        phi in input order, (phi, Health) or a plan."""
+        t = args[0] if isinstance(args[0], torch.Tensor) else args[0].tree.z
+        key = (entry, t.shape[0], t.dtype, t.device)
+
+        def make():
+            for half in ENTRIES[entry]:
+                self._prepare(half, t)
+            return self._pipeline(entry)
+
+        return self._programs.program(key, make, args)(*args)
 
     def _to_device(self, a) -> torch.Tensor:
         t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
@@ -245,15 +330,16 @@ class FmmSolver:
         ``strong_cap``/``weak_cap`` silently drops interactions — use
         ``apply_checked`` where inputs may drift (or monitor ``stats``)."""
         self._validate(z, q, "apply")
-        return self._core(self._to_device(z)[None], self._to_device(q)[None],
-                          False)[0]
+        return self._run("apply", self._to_device(z)[None],
+                         self._to_device(q)[None])[0]
 
     def apply_with_health(self, z, q):
         """``apply`` plus the health plane: ``(phi, Health)`` with the
         batch axis of the health fields kept (B = 1)."""
         self._validate(z, q, "apply_with_health")
-        phi, health = self._core(self._to_device(z)[None],
-                                 self._to_device(q)[None], True)
+        phi, health = self._run("apply_with_health",
+                                self._to_device(z)[None],
+                                self._to_device(q)[None])
         return phi[0], health
 
     def apply_checked(self, z, q) -> torch.Tensor:
@@ -272,15 +358,15 @@ class FmmSolver:
         warned once per solver)."""
         self._validate_batched(z, q)
         self._warn_batched_fallback()
-        return self._core(self._to_device(z), self._to_device(q), False,
-                          batched=True)
+        return self._run("apply_batched", self._to_device(z),
+                         self._to_device(q))
 
     def apply_batched_with_health(self, z, q):
         """``apply_batched`` plus the per-row health plane."""
         self._validate_batched(z, q)
         self._warn_batched_fallback()
-        return self._core(self._to_device(z), self._to_device(q), True,
-                          batched=True)
+        return self._run("apply_batched_with_health", self._to_device(z),
+                         self._to_device(q))
 
     def apply_batched_checked(self, z, q) -> torch.Tensor:
         """``apply_batched`` that raises when any row is unhealthy."""
@@ -310,19 +396,22 @@ class FmmSolver:
         ``apply_plan``; ``plan.conn.overflow`` (one scalar) monitors cap
         drift as the particles move."""
         self._validate(z, q, "refresh")
-        return self._build(self._to_device(z)[None],
-                           self._to_device(q)[None], self._topo)
+        return self._run("refresh", self._to_device(z)[None],
+                         self._to_device(q)[None])
 
     def apply_plan(self, plan: FmmPlan) -> torch.Tensor:
         """Evaluate a built plan (from ``refresh``) with this backend's
         phase hooks, in input order: (N,) for a B = 1 plan, (B, N) for a
         plan of B problems. ``refresh`` + ``apply_plan`` is ``apply``
-        split at the topology/evaluation seam."""
+        split at the topology/evaluation seam. On the card the plan
+        (from ``refresh`` or ``plan_from_numpy``) is copied into the
+        program's buffers; a plan of other shapes than the program's
+        (other caps) raises ``ShapeError``."""
         zs = tuple(plan.tree.z.shape)
         if len(zs) != 2 or zs[-1] != self.cfg.n:
             raise ShapeError(f"apply_plan wants a plan of (B, {self.cfg.n})"
                              f" particles; got {zs}")
-        phi = self._evaluate(plan, self._impls)
+        phi = self._run("apply_plan", plan)
         return phi[0] if zs[0] == 1 else phi
 
     def plan(self, z, q) -> FmmPlan:
@@ -368,8 +457,8 @@ class FmmSolver:
                 timer=tile_timer, device=self.device)
             result = result._replace(cfg=tiled_cfg,
                                      tile_trials=tuple(tile_trials))
-        # Shallow copy: shares the cached solver's prepared constants but
-        # carries this caller's tune_result.
+        # Shallow copy: shares the cached solver's programs and prepared
+        # constants but carries this caller's tune_result.
         tuned = copy.copy(FmmSolver.build(result.cfg, self.backend_name,
                                           self.device))
         result = result._replace(

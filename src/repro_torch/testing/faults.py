@@ -28,12 +28,18 @@ by rung instead of hoping a real fault shows up:
 The connectivity injectors patch the ``build_connectivity`` binding that
 ``repro_torch.core.fmm.fmm_build`` calls; ``nan_coefficients``
 re-registers the backend. Each calls ``FmmSolver.cache_clear()`` on
-enter AND exit, so solvers built inside the context carry the fault and
-solvers built outside never share a cache entry with them. Build the
+enter AND exit, which also releases the cached solvers' programs, so
+solvers built inside the context carry the fault and solvers built
+outside never share a cache entry with them. Build the
 ``GuardedSolver`` *inside* the context: a solver keeps the backend hooks
 it captured at construction (a registry poison never leaks into one
-built before), while the patched connectivity binding is read at every
-call.
+built before), while the patched connectivity binding is read whenever
+a program is made (``solver.program``: at a solver's first call at a
+shape; its eager run and its capture both run that binding). A solver
+cached before entry is released on entry, so its next call makes its
+programs with the fault; it is out of the cache at exit, so its programs
+keep the fault until it is released again — as the reference's held
+solver keeps its traced fault.
 
 The smoke walk (every injector, the full ladder; on the CUDA card unless
 ``--device cpu``):
@@ -157,7 +163,8 @@ def _times_nan(out):
 @contextlib.contextmanager
 def nan_coefficients(backend: str = "cuda", phase: str = "eval_fused"):
     """Kernel fault: re-register ``backend`` with its ``phase`` hook
-    wrapped to run the real hook and multiply its output by NaN —
+    wrapped to run the real hook and multiply its output by NaN (on the
+    device, so the product is captured into the program's graph) —
     deterministic non-finite coefficients/potentials from one compute
     phase, finite input. The health plane flags ``nonfinite_output``;
     the guard's per-phase degradation rung (the plain sweeps for the

@@ -26,6 +26,12 @@ Unlike the solver-level injectors they do NOT clear the solver cache:
 the serving faults are *above* the solvers, which stay healthy
 throughout.
 
+On the card ``cache_thrash`` and ``compile_storm`` mean many program
+captures, and releases as the solver LRU and the programs' memory budget
+evict; each gate's line ends with the programs the cached solvers hold
+and, on the card, the pool bytes the programs hold, the solvers the
+budget has released and the memory reserved.
+
 The soak (ragged log-normal traffic through every injector, five phases
 with the reference's gates; every fault must be visible in a report and
 nothing may raise; on the CUDA card unless ``--device cpu``):
@@ -38,9 +44,12 @@ import contextlib
 import time
 
 import numpy as np
+import torch
 
 from ..serve.plane import ServePlane
 from ..solver.guard import GuardedSolver
+from ..solver.program import program_memory
+from ..solver.solver import FmmSolver
 
 
 # ---------------------------------------------------------------------------
@@ -164,8 +173,22 @@ def run_soak(device=None, log=print, clock=time.perf_counter,
     failures: list[str] = []
     served: list[tuple] = []
 
+    def memory() -> str:
+        """Programs held by the cached solvers, and on the card the
+        memory the caching allocator reserves (graph pools included)."""
+        held = sum(s._compiled_program_count()
+                   for s in FmmSolver._cached_solvers())
+        out = f"; programs held {held}"
+        if torch.cuda.is_available() and plane.device.type == "cuda":
+            mem = program_memory(plane.device)
+            out += (f", pools {mem['held']} B (budget {mem['budget']} B, "
+                    f"{mem['released_sets']} solvers released), reserved "
+                    f"{torch.cuda.memory_reserved(plane.device)} B")
+        return out
+
     def gate(name, ok, detail=""):
-        log(("ok    " if ok else "FAIL  ") + f"{name:<32s} {detail}")
+        log(("ok    " if ok else "FAIL  ") + f"{name:<32s} {detail}"
+            + memory())
         if not ok:
             failures.append(name)
 

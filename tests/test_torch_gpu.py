@@ -1,9 +1,15 @@
 """PyTorch port on the CUDA card: each kernel against its plain version
 on the same CUDA tensors, launch counts per kernel per apply on the main
-path and on the per-phase path, the solver's cuda-vs-reference parity,
-the guard (its fault walk, a failing launch propagating) and tune, and
-the serving plane (a failing launch leaving ``serve``, the shed walk's
-warnings, warm-up, no layout rebuilt on a warm wave) on the card.
+path and on the per-phase path (a program's first call launches from
+the host, its second records the launches into the graph it captures,
+a replay launches nothing from the host and runs the recorded kernels,
+read from a profiler trace), the solver's cuda-vs-reference parity, the
+guard (its fault walk, a failing launch propagating) and tune, the
+serving plane (a failing launch leaving ``serve``, the shed walk's
+warnings, warm-up, no layout rebuilt on a warm wave), and the compiled
+programs (each entry point's first call and replay bitwise its eager
+pipeline, fresh outputs, memory back on release, the memory budget, a
+capture error raised) on the card.
 Marked ``gpu``: skipped (inside a fixture, never at import) where no
 CUDA card is present. On the machine with the
 card: ``PYTHONPATH=src python -m pytest --noconftest -m gpu
@@ -30,6 +36,7 @@ from repro_torch.kernels import (eval_fused_cuda, eval_fused_plain,
                                  nbody_plan,
                                  p2l_cuda, p2l_operands, p2l_plain, p2p_cuda,
                                  p2p_operands, p2p_plain, reset_launch_counts)
+from repro_torch.kernels.build import recorded_counts
 from repro_torch.solver import FmmSolver, get_backend, register_backend
 
 pytestmark = pytest.mark.gpu
@@ -55,6 +62,20 @@ def cuda():
 
 def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
+
+
+def _runs(fn):
+    """(fn(), host launches, recorded launches) of one call, synchronized:
+    what the kernel wrappers counted during it, from the host (a
+    program's first call runs eagerly) and into a graph being captured
+    (its second call captures, then replays once)."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    before = recorded_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts(), {k: v - before[k]
+                                  for k, v in recorded_counts().items()}
 
 
 def _main_counts(**kw):
@@ -115,17 +136,16 @@ def test_kernels_match_plain_versions(cuda, dtype, kernel):
 def test_apply_launches_each_kernel_once_and_matches_reference(cuda):
     cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype="f64")
     z, q = particles("layer", cfg.n, 1, device=cuda)
+    FmmSolver.cache_clear()          # first calls: launched from the host
     solver = FmmSolver.build(cfg)
     assert solver.dispatched["apply"] == "cuda"
-    reset_launch_counts()
-    phi = solver.apply_checked(z, q)
-    assert launch_counts() == _main_counts()
+    phi, host, _ = _runs(lambda: solver.apply_checked(z, q))
+    assert host == _main_counts()
     ref = FmmSolver.build(cfg, backend="reference").apply(z, q)
     assert _rel(phi, ref) <= 1e-10
-    reset_launch_counts()
     zb, qb = torch.stack([z, z.flip(0)]), torch.stack([q, q.flip(0)])
-    phib = solver.apply_batched(zb, qb)
-    assert launch_counts() == _main_counts()
+    phib, host, _ = _runs(lambda: solver.apply_batched(zb, qb))
+    assert host == _main_counts()
     assert torch.equal(phib[0], phi)
 
 
@@ -138,17 +158,16 @@ def test_per_phase_path_launches_and_matches_main_path(cuda):
     register_backend(dataclasses.replace(
         get_backend("cuda", cuda), name="cuda-phases", m2l_fused=None,
         eval_fused=None))
+    FmmSolver.cache_clear()          # first calls: launched from the host
     solver = FmmSolver.build(cfg, backend="cuda-phases")
     want = _main_counts(m2l=cfg.nlevels, eval_fused=0, l2p=1, p2p=1)
-    reset_launch_counts()
-    phi = solver.apply_checked(z, q)
-    assert launch_counts() == want
+    phi, host, _ = _runs(lambda: solver.apply_checked(z, q))
+    assert host == want
     main = FmmSolver.build(cfg).apply(z, q)
     assert _rel(phi, main) <= 1e-10
-    reset_launch_counts()
     zb, qb = torch.stack([z, z.flip(0)]), torch.stack([q, q.flip(0)])
-    phib = solver.apply_batched(zb, qb)
-    assert launch_counts() == want
+    phib, host, _ = _runs(lambda: solver.apply_batched(zb, qb))
+    assert host == want
     assert torch.equal(phib[0], phi)
 
 
@@ -413,8 +432,11 @@ def test_m2l_rows_spread_over_a_wide_row_are_bitwise_the_packed(cuda, dtype):
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
 def test_refresh_apply_plan_launches_and_is_bitwise_apply(cuda, dtype):
     """Three steps on moved particles: refresh launches classify once,
-    apply_plan M2L, P2L and the fused evaluation once each; phi bitwise
-    apply's; prepared once per half; no overflow."""
+    apply_plan M2L, P2L and the fused evaluation once each (from the
+    host at a program's first call, recorded into its graph at the
+    second, replayed after; ``stats`` calls ``refresh`` too, so the
+    refresh program captures in the first step); phi bitwise apply's;
+    prepared once per half; no overflow."""
     smoke = _smoke()
     cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype=dtype)
     z, q = particles("uniform", cfg.n, 11, device=cuda)
@@ -422,12 +444,14 @@ def test_refresh_apply_plan_launches_and_is_bitwise_apply(cuda, dtype):
     none = _main_counts(classify=0, m2l=0, p2l=0, eval_fused=0)
     for step in range(3):
         zk = smoke.perturbed(z, step)
-        reset_launch_counts()
-        plan = solver.refresh(zk, q)
-        assert launch_counts() == dict(none, classify=1)
-        reset_launch_counts()
-        phi = solver.apply_plan(plan)
-        assert launch_counts() == dict(none, m2l=1, p2l=1, eval_fused=1)
+        want = dict(none, classify=1)
+        plan, host, rec = _runs(lambda: solver.refresh(zk, q))
+        assert (host, rec) == [(want, none), (none, none),
+                               (none, none)][step]
+        want = dict(none, m2l=1, p2l=1, eval_fused=1)
+        phi, host, rec = _runs(lambda: solver.apply_plan(plan))
+        assert (host, rec) == [(want, none), (none, want),
+                               (none, none)][step]
         assert torch.equal(phi, solver.apply(zk, q))
         assert solver.stats(zk, q)["overflow"] == 0
     assert solver.trace_counts == {"build": 1, "evaluate": 1}
@@ -548,8 +572,12 @@ def test_fault_walk_on_the_card(cuda, monkeypatch):
     none in the direct rung (counted through the guard's ``rung_hook``),
     one ``BackendDowngradeWarning`` for each of those two rungs, a
     poisoned input refused."""
+    from repro_torch.solver.program import Program
+
     smoke = _smoke()
     monkeypatch.setattr(smoke, "FAULT_N", 1 << 14)
+    monkeypatch.setattr(Program, "__call__", Program.__call__)
+    smoke.observe_programs()           # the walk's gates read program calls
     smoke.fault_walk(torch)
 
 
@@ -599,6 +627,7 @@ def test_kernel_launch_error_propagates_out_of_apply_guarded(cuda,
 
     cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype="f64")
     z, q = particles("normal", cfg.n, 2, device=cuda)
+    FmmSolver.cache_clear()        # a fresh solver launches from the host
     g = GuardedSolver(cfg)
     assert g.device.type == "cuda" and g.solver.dispatched["apply"] == "cuda"
     monkeypatch.setattr(LIBRARIES[name], "launch", failing)
@@ -622,16 +651,20 @@ def test_tune_and_guard_on_the_card(cuda, dist):
     probes = len(tuned.tune_result.trials)
     assert launch_counts() == _main_counts(classify=probes, m2l=0, p2l=0,
                                            eval_fused=0)
-    reset_launch_counts()
-    phi = tuned.apply_checked(z, q)
-    assert launch_counts() == _main_counts()
+    # its first call (from the host) or, where the other distribution
+    # tuned to the same caps, its second (recorded into the capture)
+    phi, host, rec = _runs(lambda: tuned.apply_checked(z, q))
+    assert {k: host[k] + rec[k] for k in host} == _main_counts()
     ref = FmmSolver.build(tuned.cfg, backend="reference").apply(z, q)
     assert _rel(phi, ref) <= 1e-10
-    reset_launch_counts()
-    gphi, rep = solver.guarded().apply_guarded(z, q)
+    (gphi, rep), host, rec = _runs(
+        lambda: solver.guarded().apply_guarded(z, q))
     assert rep.ok and rep.degradations == ()
     n = len(rep.attempts)
-    assert launch_counts() == {k: v * n for k, v in _main_counts().items()}
+    # each rung's solver runs its health program for the first time
+    # (eagerly) or the second (a capture): one launch a kernel a rung
+    assert {k: host[k] + rec[k] for k in host} == \
+        {k: v * n for k, v in _main_counts().items()}
     gref = FmmSolver.build(dataclasses.replace(
         cfg, strong_cap=rep.attempts[-1].strong_cap,
         weak_cap=rep.attempts[-1].weak_cap), backend="reference").apply(z, q)
@@ -670,6 +703,7 @@ def test_kernel_launch_error_propagates_out_of_serve(cuda, monkeypatch,
         raise RuntimeError(f"{name}:{symbol} launch failed: injected "
                            "(cudaError 700)")
 
+    FmmSolver.cache_clear()        # a fresh solver launches from the host
     plane = _serve_plane()
     monkeypatch.setattr(LIBRARIES[name], "launch", failing)
     reset_launch_counts()
@@ -758,3 +792,172 @@ def test_nine_bucket_wave_rebuilds_no_layout(cuda):
                       for k, g in plane.cache._entries.items()}
     for a, b in zip(first, second):
         assert np.array_equal(a.phi, b.phi)
+
+
+# ---------------------------------------------------------------------------
+# compiled programs (CUDA graphs) on the card
+# ---------------------------------------------------------------------------
+
+def _phases_backend(cuda):
+    register_backend(dataclasses.replace(
+        get_backend("cuda", cuda), name="cuda-phases", m2l_fused=None,
+        eval_fused=None))
+    return "cuda-phases"
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("backend", ["cuda", "cuda-phases"])
+def test_each_entry_point_replays_its_eager_pipeline_bitwise(cuda, dtype,
+                                                             backend):
+    """Each of the five entry points (``apply``, ``apply_with_health``,
+    ``apply_batched`` at B = 4, ``refresh``, ``apply_plan``): the first
+    call launches one run's kernels from the host (the main path's, or
+    the per-phase path's), the second records them into its capture and
+    launches nothing from the host, a replay launches nothing from the
+    host and runs exactly those kernels on the card (a profiler trace),
+    and every call's output is bitwise the eager pipeline's."""
+    smoke = _smoke()
+    if backend != "cuda":
+        _phases_backend(cuda)
+    cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype=dtype)
+    probs = [particles(d, cfg.n, 5, device=cuda)
+             for d in ("uniform", "normal", "layer", "uniform")]
+    z, q = probs[0]
+    zb = torch.stack([p[0] for p in probs])
+    qb = torch.stack([p[1] for p in probs])
+    solver = FmmSolver(cfg, backend)
+    plan = smoke.eager_entry(solver, "refresh", *(
+        a.to(cfg.torch_complex)[None] for a in (z, q)))
+    none = _main_counts(classify=0, m2l=0, p2l=0, eval_fused=0)
+    for entry, (call, eager, want) in smoke.entry_calls(
+            solver, z, q, zb, qb, plan).items():
+        ref = eager()
+        for n, expect in enumerate([(want, none), (none, want)]):
+            got, host, rec = _runs(call)
+            assert (host, rec) == expect, (entry, n)
+            assert all(torch.equal(a, b) for a, b in
+                       zip(smoke.leaves(got), smoke.leaves(ref))), entry
+        prog = next(p for k, p in solver.programs().items()
+                    if k[0] == entry)
+        assert prog.launches == want and prog.recorded == want
+        (got, ran), host, rec = _runs(lambda: smoke.replay_kernels(call,
+                                                                   torch))
+        assert host == none and rec == none and ran == want, (entry, ran)
+        assert len(smoke.leaves(got)) == len(smoke.leaves(ref))
+        assert all(torch.equal(a, b) for a, b in
+                   zip(smoke.leaves(got), smoke.leaves(ref))), entry
+        assert (prog.calls, prog.replays) == (3, 2)
+    assert solver._compiled_program_count() == 5
+
+
+def test_a_returned_result_is_not_overwritten_by_the_next_call(cuda):
+    """Outputs are fresh tensors: a phi, a health plane and a plan taken
+    from one replay keep their values through later replays at the same
+    shape on other inputs."""
+    cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype="f32")
+    (z1, q1), (z2, q2) = (particles(d, cfg.n, 6, device=cuda)
+                          for d in ("uniform", "layer"))
+    solver = FmmSolver(cfg)
+    for _ in range(2):                         # eager, then the capture
+        solver.apply_with_health(z2, q2)
+        solver.refresh(z2, q2)
+    phi1, health1 = solver.apply_with_health(z1, q1)
+    plan1 = solver.refresh(z1, q1)
+    kept = [t.clone() for t in (phi1, *health1, plan1.tree.perm,
+                                plan1.conn.p2p)]
+    phi2, health2 = solver.apply_with_health(z2, q2)
+    plan2 = solver.refresh(z2, q2)
+    assert all(p.replays == 3 for p in solver.programs().values())
+    assert not torch.equal(phi1, phi2)
+    assert not torch.equal(plan1.tree.perm, plan2.tree.perm)
+    now = (phi1, *health1, plan1.tree.perm, plan1.conn.p2p)
+    assert all(torch.equal(a, b) for a, b in zip(kept, now))
+    assert phi1.data_ptr() != phi2.data_ptr()
+
+
+def test_release_returns_the_reserved_memory(cuda):
+    """A solver's programs hold their pool until ``_release_executables``;
+    after it and ``empty_cache`` the reserved memory is back where it
+    was before the captures."""
+    cfg = FmmConfig(n=1 << 16, nlevels=5, p=17, dtype="f64")
+    z, q = particles("normal", cfg.n, 7, device=cuda)
+    solver = FmmSolver(cfg)
+    solver.apply(z, q)                 # constants built outside the window
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    for _ in range(2):
+        solver.apply(z, q)
+        solver.apply_with_health(z, q)
+        solver.apply_plan(solver.refresh(z, q))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    assert solver._compiled_program_count() == 4 and held > before
+    assert all(p.captured for p in solver.programs().values())
+    solver._release_executables()
+    torch.cuda.empty_cache()
+    assert solver._compiled_program_count() == 0
+    assert torch.cuda.memory_reserved() == before
+
+
+def test_memory_budget_releases_the_least_recently_run_solver(cuda):
+    """With a budget smaller than one solver's programs, a second
+    solver's capture releases the first solver's programs (never its
+    own), and the released solver answers bitwise as before: eagerly at
+    its next call, from a new capture at the one after."""
+    from repro_torch.solver import program_memory, set_program_budget
+
+    cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype="f64")
+    z, q = particles("normal", cfg.n, 9, device=cuda)
+    a, b = FmmSolver(cfg), FmmSolver(dataclasses.replace(cfg, p=16))
+    FmmSolver.cache_clear()
+    released = program_memory(cuda)["released_bytes"]
+    set_program_budget(1, cuda)
+    try:
+        phi = [a.apply(z, q), a.apply(z, q)]
+        a_bytes = a._programs.bytes
+        assert a._compiled_program_count() == 1 and a_bytes > 0
+        b.apply(z, q)
+        b.apply(z, q)
+        assert a._compiled_program_count() == 0
+        assert b._compiled_program_count() == 1
+        # a's pool went (and any other solver's still held)
+        assert program_memory(cuda)["released_bytes"] >= \
+            released + a_bytes
+        phi += [a.apply(z, q), a.apply(z, q)]
+        assert all(torch.equal(p, phi[0]) for p in phi)
+        assert b._compiled_program_count() == 0
+    finally:
+        set_program_budget(None, cuda)
+
+
+def test_a_capture_error_raises_and_never_falls_back_to_eager(cuda):
+    """A hook that reads a value back to the host (``.item()``) runs in
+    the first, eager call but cannot be captured: the second call
+    raises, and so does the third — no eager fallback, no graph kept. A
+    solver without it still captures afterwards."""
+    cuda_be = get_backend("cuda", cuda)
+
+    def syncing(*args, **kwargs):
+        out = cuda_be.m2l_fused(*args, **kwargs)
+        float(out[0].real.sum().item())          # a host read
+        return out
+
+    register_backend(dataclasses.replace(cuda_be, name="cuda-host-read",
+                                         m2l_fused=syncing))
+    cfg = FmmConfig(n=1 << 12, nlevels=3, p=12, dtype="f64")
+    z, q = particles("uniform", cfg.n, 8, device=cuda)
+    solver = FmmSolver(cfg, "cuda-host-read")
+    plain = FmmSolver(cfg)
+    assert torch.equal(solver.apply(z, q), plain.apply(z, q))
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            solver.apply(z, q)
+        prog, = solver.programs().values()
+        assert not prog.captured and prog.calls == 1
+    torch.cuda.synchronize()
+    phi = plain.apply(z, q)
+    plain.apply(z, q)
+    assert plain.programs()[next(iter(plain.programs()))].captured
+    assert bool(torch.isfinite(phi).all())
