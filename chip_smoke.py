@@ -114,19 +114,48 @@ Runs top to bottom and exits nonzero on the first failure:
    ``repro_torch.testing.serve_faults``' soak with its gates, every
    clean request on "cuda" but the designed ``oversize->direct`` ones,
    each warning once;
-10. per-phase path: the "cuda" backend without its fused hooks,
+10. degenerate: the layouts of ``tests/test_torch_helpers.py``
+   (all-coincident, one distinct point in a cluster, collinear, empty
+   quadrants, zero charges, scales 1e-9 / 1e-3 / 1e6) at n = 256, f64,
+   through ``apply_with_health`` on a fresh "cuda" solver each: the
+   first (eager) call against the port's run on the CPU (the same
+   ``host_health``, finite and NaN pattern, phi within F64_TOL where
+   finite) and the third call (a replay) bitwise the first;
+11. examples: the three twins in ``examples/`` through their ``run``
+   functions on the card: ``torch_vortex_dynamics`` at N = 2^20, p = 17,
+   f32, VORTEX_STEPS RK2 steps of ``refresh_guarded`` + ``apply_plan``
+   (the first step's velocity against the f64 direct sum at N_SAMPLE
+   targets; every guard report on "cuda" without degradation, no
+   downgrade warning, the example's drift assert, every program
+   replaying from its third call; re-plans, caps, the replayed
+   ``refresh_guarded`` / ``apply_plan`` ms, program calls by kind);
+   ``torch_quickstart`` at N = 2^20, normal, f64, B = 4 (its asserts,
+   its 512-point error under the f64 bound, ``apply_batched`` on
+   "cuda"; apply and batched ms); ``torch_serve_traffic`` at its
+   defaults (clean requests "ok" / "recovered" on "cuda", poisons
+   refused with the reference's errors, one warning a designed
+   ``oversize->direct`` request; requests/s a wave); each example runs
+   the four main-path kernels;
+12. substrate: ``train_loop`` around the vortex twin's RK2 steps at
+   2^20 with the impulse drift as its loss: checkpoints every
+   SUB_EVERY steps, a ``FailureInjector`` stop at step SUB_FAIL,
+   ``restore_latest`` onto the card (bitwise the saved state), resumed
+   to SUB_STEPS; the final z bitwise an uninterrupted run's when no run
+   re-planned (else within 1e-5); save (snapshot) and restore ms and
+   the checkpoint's bytes;
+13. per-phase path: the "cuda" backend without its fused hooks,
    registered as "cuda-phases", on the same problems: M2L once per
    level, L2P and P2P once, classify and P2L once, the fused evaluation
    never; the same accuracy bounds; in f64 phi within 1e-10 of the main
    path's and the reference backend's;
-11. batched: ``apply_batched`` with B = 4 at N = 2^20 in f32 on both
+14. batched: ``apply_batched`` with B = 4 at N = 2^20 in f32 on both
    paths — the same launches as one apply, each row equal to that
    problem's ``apply``;
-12. direct baseline: ``nbody_direct`` all-pairs at N = 2^20 in f32 and
+15. direct baseline: ``nbody_direct`` all-pairs at N = 2^20 in f32 and
    f64 (one launch each, its source splits printed), timed beside the
    FMM apply, and the paper's Fig. 5.5 sweep N = 2^9 .. 2^20 with the
    break-even N (the FMM apply replayed; its first call printed);
-13. prints one JSON line with every kernel's launches (from the host in
+16. prints one JSON line with every kernel's launches (from the host in
    the main path's run), error, times and
    bound (N-body also its splits at both shapes, K, registers and SASS
    instructions a pair; M2L its wide-row times and shared memory), the
@@ -216,6 +245,21 @@ POISON_ERRORS = {"nan-q": "NonFiniteInputError",
 BIG_LATTICE = (1 << 17, 1 << 20)
 BIG_WAVE = dict(seed=2, median_n=300_000, sigma=0.6, n_min=100_000,
                 n_max=1 << 20)
+# degenerate: the layouts of tests/test_torch_helpers.py (its size and
+# config), each held against the port's own run on the CPU
+DEGENERATE = dict(n=256, nlevels=2, p=12, dtype="f64", strong_cap=32,
+                  weak_cap=64)
+# examples: the vortex twin's RK2 steps at N (p = P_TERMS, the example's
+# f32), the quickstart twin's batch at N (f64, normal), and the serve
+# twin at its defaults; the vortex steps of the substrate's runs (a
+# failure before SUB_FAIL, a checkpoint every SUB_EVERY steps) and its
+# time step
+VORTEX_STEPS = 12
+QUICK_BATCH = 4
+SUB_STEPS = 8
+SUB_FAIL = 5
+SUB_EVERY = 2
+VORTEX_DT = 2e-4
 # graphs: replays and eager runs timed per entry point, and the batch
 # width of apply_batched
 GRAPH_REPS = 5
@@ -271,10 +315,20 @@ def check(cond, msg: str) -> None:
         raise AssertionError(msg)
 
 
-# Every program call of the run, as (entry, kind, recorded): kind is
-# "eager" (a program's first call), "capture" (its second: it captures,
-# then replays once) or "replay"; recorded: the launches its capture
-# recorded. Filled by ``observe_programs``, read by ``counting``.
+class ProgramCall(NamedTuple):
+    """One program call: its entry point, its kind ("eager": a program's
+    first call, "capture": its second, which captures and then replays
+    once, or "replay"), the launches its capture recorded, and which
+    program it was (the id of its solver's ``ProgramSet`` and its key)."""
+
+    entry: str
+    kind: str
+    recorded: dict
+    program: tuple
+
+
+# Every program call of the run. Filled by ``observe_programs``, read by
+# ``counting``.
 PROGRAM_CALLS: list = []
 # a kernel's name on the card's timeline: <name>_kernel<...>(...)
 KERNEL_NAME = re.compile(r"\b([a-z0-9_]+?)_kernel\b")
@@ -304,7 +358,9 @@ def observe_programs() -> None:
         kind = ("replay" if self.captured else
                 "eager" if self.calls == 0 else "capture")
         out = real(self, *args)
-        PROGRAM_CALLS.append((self.entry, kind, dict(self.recorded)))
+        PROGRAM_CALLS.append(ProgramCall(self.entry, kind,
+                                         dict(self.recorded),
+                                         (id(self._owner()), self.key)))
         return out
 
     observed.observed = True
@@ -347,19 +403,19 @@ def ran(c: Calls, want: dict, n: int = 1) -> bool:
     over the call), and each replay replayed a graph whose capture
     recorded ``want`` (what a replay runs on the card is read from a
     profiler trace in the graphs phase)."""
-    fresh = sum(kind != "replay" for _, kind, _ in c.programs)
+    fresh = sum(p.kind != "replay" for p in c.programs)
     return (len(c.programs) == n
             and all(c.host[k] + c.recorded[k] == want[k] * fresh
                     for k in KERNELS)
-            and all(r == want for _, kind, r in c.programs
-                    if kind == "replay"))
+            and all(p.recorded == want for p in c.programs
+                    if p.kind == "replay"))
 
 
 def calls_note(c: Calls) -> str:
     """A counted call's launches from the host, recorded into captures,
     and its program calls by kind (nonzero kernels only)."""
     nz = lambda d: {k: v for k, v in d.items() if v}  # noqa: E731
-    kinds = "/".join(kind for _, kind, _ in c.programs) or "none"
+    kinds = "/".join(p.kind for p in c.programs) or "none"
     return f"host {nz(c.host)}, recorded {nz(c.recorded)}, programs {kinds}"
 
 
@@ -932,7 +988,7 @@ def median_apply_s(solver, z, q, phi, tag: str, torch) -> float:
         check(torch.equal(again, phi), f"{tag}: apply not bitwise "
               "reproducible")
         if i >= 2:
-            check([k for _, k, _ in c.programs] == ["replay"]
+            check([p.kind for p in c.programs] == ["replay"]
                   and not any(c.host.values())
                   and not any(c.recorded.values()),
                   f"{tag}: apply call {i + 1}: {calls_note(c)} (want a "
@@ -1114,7 +1170,7 @@ def graphs_phase(dt: str, main: dict, torch) -> None:
                 for kind in ("eager", "capture"):
                     got, c, secs = counted(call, torch)
                     first_ms.append(1e3 * secs)
-                    check(ran(c, want) and [k for _, k, _ in c.programs]
+                    check(ran(c, want) and [p.kind for p in c.programs]
                           == [kind] and same(got),
                           f"{tag}/{entry}: {kind} call {calls_note(c)} (want "
                           f"{want}), bitwise eager {same(got)}")
@@ -1123,7 +1179,7 @@ def graphs_phase(dt: str, main: dict, torch) -> None:
                 replay_s = []
                 for _ in range(GRAPH_REPS):
                     got, c, secs = counted(call, torch)
-                    check(ran(c, want) and [k for _, k, _ in c.programs]
+                    check(ran(c, want) and [p.kind for p in c.programs]
                           == ["replay"] and same(got),
                           f"{tag}/{entry}: replay {calls_note(c)}, bitwise "
                           f"eager "
@@ -1562,8 +1618,7 @@ def fault_walk(torch) -> None:
     from repro_torch.configs import fmm_config
     from repro_torch.core.direct import direct_potential
     from repro_torch.data import particles
-    from repro_torch.errors import (BackendDowngradeWarning,
-                                    NonFiniteInputError)
+    from repro_torch.errors import NonFiniteInputError
     from repro_torch.kernels import nbody_direct
     from repro_torch.solver import FmmSolver
     from repro_torch.testing.faults import smoke_cases
@@ -1627,8 +1682,7 @@ def fault_walk(torch) -> None:
         # rung that failed before it
         plain = [(got[i - 1], r) for i, r in enumerate(got)
                  if r.startswith("degrade:") or r == "direct"]
-        said = [str(w.message) for w in caught
-                if issubclass(w.category, BackendDowngradeWarning)]
+        said = downgrades(caught)
         check(len(said) == len(plain)
               and all(f"rung {f!r}" in m and f"serving from {r!r}" in m
                       for (f, r), m in zip(plain, said)),
@@ -1711,7 +1765,6 @@ def serve_wave(plane, wave, tag: str, torch, seen=None, full_acc=True):
 
     from repro_torch.core.direct import direct_potential, rel_error_inf
     from repro_torch.core.topology import layout_builds
-    from repro_torch.errors import BackendDowngradeWarning
     from repro_torch.serve import Request
 
     before = {b: s._asdict() for b, s in plane.cache.info().items()}
@@ -1723,8 +1776,7 @@ def serve_wave(plane, wave, tag: str, torch, seen=None, full_acc=True):
         results = plane.serve([Request(z, q) for _, z, q, _ in wave])
         wall = time.perf_counter() - t0
     builds = layout_builds() - builds
-    said = [str(w.message) for w in caught
-            if issubclass(w.category, BackendDowngradeWarning)]
+    said = downgrades(caught)
     check(said == [], f"{tag}: downgrade warnings {said}")
     gen = torch.Generator().manual_seed(SEED)
     worst, clean, lat = 0.0, 0, []
@@ -1780,7 +1832,7 @@ def serve_wave(plane, wave, tag: str, torch, seen=None, full_acc=True):
                          for k, v in s._asdict().items())
                 for b, s in after.items()}
     hits = sum(c[0] for c in counters.values())
-    kinds = [k for d in log for _, k, _ in d["calls"].programs]
+    kinds = [p.kind for d in log for p in d["calls"].programs]
     kinds = {k: kinds.count(k) for k in ("eager", "capture", "replay")}
     out = dict(requests=len(wave), clean=clean, dispatches=len(log),
                rps=clean / wall, p50=1e3 * float(np.percentile(lat, 50)),
@@ -1818,7 +1870,6 @@ def serve_phase(torch) -> None:
     import functools
 
     from repro_torch.data import particles_numpy, ragged_requests
-    from repro_torch.errors import BackendDowngradeWarning
     from repro_torch.serve import (BucketLattice, ServePlane,
                                    default_cfg_factory)
     from repro_torch.solver import FmmSolver
@@ -1884,8 +1935,7 @@ def serve_phase(torch) -> None:
         secs = time.perf_counter() - t0
     print("\n".join(f"serve[c]: {g}" for g in gates), flush=True)
     check(failures == [], f"serve[c]: soak gates failed: {failures}")
-    said = [str(w.message) for w in caught
-            if issubclass(w.category, BackendDowngradeWarning)]
+    said = downgrades(caught)
     direct = [rep for _, _, phi, rep in served
               if rep.path[:1] == ("oversize->direct",)]
     for phase, kind, phi, rep in served:
@@ -1893,11 +1943,7 @@ def serve_phase(torch) -> None:
             want = ("direct" if rep.path[:1] == ("oversize->direct",)
                     else "cuda")
             check(rep.backend == want, f"serve[c/{phase}]: {rep.summary()}")
-    check(len(said) == len(direct) and all(
-        f"request {rep.rid} " in m and "'oversize->direct'" in m
-        for rep, m in zip(direct, said)),
-        f"serve[c]: downgrade warnings {said} (want one a direct request: "
-        f"{[r.rid for r in direct]})")
+    one_warning_each(direct, said, "serve[c]")
     print(f"serve[c]: soak on the card in {secs:.1f} s: "
           f"{sum(phi is not None for _, _, phi, _ in served)} served "
           f"({len(direct)} oversize->direct, one warning each), "
@@ -1905,6 +1951,420 @@ def serve_phase(torch) -> None:
           flush=True)
     print(f"serve: phase {time.perf_counter() - t_phase:.1f} s (host)",
           flush=True)
+
+
+def degenerate_layouts(n: int) -> dict:
+    """``tests/test_torch_helpers.py:_layouts`` without the reference: the
+    same numpy draws (``particles_numpy`` is the reference's generator,
+    number for number), so the card runs the layouts that the CPU tests
+    hold to the reference."""
+    import numpy as np
+
+    from repro_torch.data import particles_numpy
+
+    rng = np.random.default_rng(42)
+    ones = np.ones(n, np.complex128)
+    normal = rng.normal(size=n) + 0j
+    cluster = np.full(n, 0.25 + 0.25j)
+    cluster[0] = 0.75 + 0.75j
+    uz, uq = particles_numpy("uniform", n, 42)
+    out = {
+        "all-coincident": (np.full(n, 0.3 + 0.6j), ones),
+        "one-distinct-in-a-cluster": (cluster, ones),
+        "collinear": (rng.uniform(0, 1, n) + 0.4j, normal),
+        "empty-quadrants": (rng.uniform(0, 0.25, n)
+                            + 1j * rng.uniform(0, 0.25, n), normal),
+        "zero-charges": (uz, np.zeros(n, np.complex128)),
+    }
+    for e in (-9, -3, 6):
+        out[f"scale-1e{e}"] = (uz * 10.0 ** e, uq)
+    return out
+
+
+def bits(t):
+    """A tensor's bits as integers (NaNs compare equal when their bits
+    do)."""
+    import torch
+
+    r = torch.view_as_real(t) if t.is_complex() else t
+    return r.contiguous().view(
+        {8: torch.int64, 4: torch.int32, 1: torch.uint8}[r.element_size()])
+
+
+def degenerate_phase(torch) -> None:
+    """The degenerate layouts through ``apply_with_health`` on the card,
+    each on a fresh "cuda" solver: the first call (eager) and the third
+    (a replay) against the port's run of the layout on the CPU (the
+    kernels' plain versions, which ``tests/test_torch_helpers.py`` holds
+    to the reference): the same ``host_health``, the same finite and NaN
+    pattern, phi within F64_TOL where finite; the replay bitwise the
+    eager call."""
+    from repro_torch.core.config import FmmConfig
+    from repro_torch.solver import FmmSolver, host_health
+
+    t0 = time.perf_counter()
+    cfg = FmmConfig(**DEGENERATE)
+    for name, (z, q) in degenerate_layouts(cfg.n).items():
+        tag = f"degenerate[{name}]"
+        phi_cpu, h_cpu = FmmSolver(cfg, "cuda", "cpu").apply_with_health(z, q)
+        h_cpu = host_health(h_cpu)
+        solver = FmmSolver(cfg, "cuda")
+        runs = [counted(lambda: solver.apply_with_health(z, q), torch)
+                for _ in range(3)]
+        kinds = [p.kind for _, c, _ in runs for p in c.programs]
+        check(kinds == ["eager", "capture", "replay"],
+              f"{tag}: program calls {kinds}")
+        check(ran(runs[0][1], want_counts()),
+              f"{tag}: eager launches {calls_note(runs[0][1])}")
+        (phi, health), _, _ = runs[0]
+        (phi_r, health_r), _, _ = runs[2]
+        h = host_health(health)
+        check(h == h_cpu, f"{tag}: host_health {h} != the CPU's {h_cpu}")
+        got, ref = phi.cpu(), phi_cpu
+        check(torch.equal(got.isfinite(), ref.isfinite())
+              and torch.equal(got.isnan(), ref.isnan()),
+              f"{tag}: finite / NaN pattern differs from the CPU's")
+        ok = ref.isfinite()
+        d = (rel_err(got[ok], ref[ok]) if ok.any() and ref[ok].abs().max() > 0
+             else float(not torch.equal(got[ok], ref[ok])))
+        check(d <= F64_TOL, f"{tag}: phi vs the CPU's {d:.3e}")
+        check(torch.equal(bits(phi_r), bits(phi))
+              and all(torch.equal(bits(a), bits(b)) for a, b in
+                      zip(leaves(health_r), leaves(health))),
+              f"{tag}: the replay is not bitwise the eager call")
+        print(f"{tag}: host_health {h}; finite {int(ok.sum())}/{cfg.n}, NaN "
+              f"{int(ref.isnan().sum())}; vs CPU {d:.3e}; replay bitwise "
+              f"eager; eager launches {calls_note(runs[0][1])}", flush=True)
+    print(f"degenerate: phase {time.perf_counter() - t0:.1f} s (host)",
+          flush=True)
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def method_log(cls, names, torch):
+    """Count and time every call of ``cls``'s methods ``names`` (host
+    seconds ending in a synchronize): the yielded list gets one dict a
+    call, with its ``name``, ``calls`` (``Calls``) and ``ms``. Restores
+    the methods on exit."""
+    log, real = [], {n: getattr(cls, n) for n in names}
+
+    def wrap(name):
+        def logged(self, *args, **kw):
+            out, c, secs = counted(lambda: real[name](self, *args, **kw),
+                                   torch)
+            log.append(dict(name=name, calls=c, ms=1e3 * secs))
+            return out
+        return logged
+
+    for n in names:
+        setattr(cls, n, wrap(n))
+    try:
+        yield log
+    finally:
+        for n, fn in real.items():
+            setattr(cls, n, fn)
+
+
+def kernel_runs(calls) -> dict:
+    """Runs of each kernel over counted calls, all measured: launched
+    from the host, recorded into a capture, or run by the replay of a
+    graph whose capture recorded it."""
+    out = dict.fromkeys(KERNELS, 0)
+    for c in calls:
+        for k in KERNELS:
+            out[k] += c.host[k] + c.recorded[k] + sum(
+                p.recorded.get(k, 0) for p in c.programs
+                if p.kind == "replay")
+    return out
+
+
+def main_kernels_ran(runs: dict, tag: str) -> None:
+    want = ("classify", "m2l", "p2l", "eval_fused")
+    check(all(runs[k] > 0 for k in want),
+          f"{tag}: main-path kernels run {runs} (want each of {want})")
+
+
+def program_kinds(programs, tag: str) -> dict:
+    """Gate: per program (solver and key), no call after its first
+    capture or replay runs eagerly or captures again (a release would
+    make it). Returns the calls by kind."""
+    seen: dict = {}
+    for p in programs:
+        kinds = seen.setdefault(p.program, [])
+        check(p.kind == "replay" or all(k == "eager" for k in kinds),
+              f"{tag}: {p.entry} ran {kinds + [p.kind]}")
+        kinds.append(p.kind)
+    every = [p.kind for p in programs]
+    return {k: every.count(k) for k in ("eager", "capture", "replay")}
+
+
+def one_warning_each(direct: list, said: list, tag: str) -> None:
+    """Gate: exactly one downgrade warning for each ``oversize->direct``
+    report, in order, naming its request and the step."""
+    check(len(said) == len(direct) and all(
+        f"request {rep.rid} " in m and "'oversize->direct'" in m
+        for rep, m in zip(direct, said)),
+        f"{tag}: downgrade warnings {said} (want one a direct request: "
+        f"{[r.rid for r in direct]})")
+
+
+def downgrades(caught) -> list:
+    from repro_torch.errors import BackendDowngradeWarning
+    return [str(w.message) for w in caught
+            if issubclass(w.category, BackendDowngradeWarning)]
+
+
+def vortex_example(vortex, torch) -> None:
+    """The vortex twin at N, p = P_TERMS, f32: the first step's velocity
+    against the f64 direct sum at N_SAMPLE targets, then ``run`` for
+    VORTEX_STEPS RK2 steps (its drift assert and its trace-count
+    assert), every guard report on "cuda" without degradation, no
+    downgrade warning, the four main-path kernels run, every program
+    replaying from its third call; re-plans, caps, the steps'
+    ``refresh_guarded`` and ``apply_plan`` replay ms and the program
+    calls by kind."""
+    import math
+
+    from repro_torch.core.direct import direct_potential, rel_error_inf
+    from repro_torch.solver import GuardedSolver, program_memory
+
+    t0 = time.perf_counter()
+    released = program_memory()["released_sets"]
+    with warnings.catch_warnings(record=True) as caught, \
+            method_log(GuardedSolver, ("refresh_guarded", "apply_plan"),
+                       torch) as log:
+        warnings.simplefilter("always")
+        z, g, guard, _, _ = vortex.setup(N, P_TERMS)
+        (u, rep), _, first_s = counted(lambda: vortex.velocity(z, g, guard),
+                                       torch)
+        gen = torch.Generator().manual_seed(SEED)
+        idx = torch.randperm(N, generator=gen)[:N_SAMPLE].to(z.device)
+        z64, g64 = z.to(torch.complex128), g.to(torch.complex128)
+        u_ref = torch.conj_physical(
+            direct_potential(z64[idx], z64, g64) / (2j * math.pi))
+        err = rel_error_inf(u[idx].to(torch.complex128), u_ref)
+        check(err < ACC_BOUND["f32"] and rep.ok and rep.degradations == (),
+              f"vortex: first step velocity {err:.3e} (bound "
+              f"{ACC_BOUND['f32']}), {rep.summary()}")
+        del u, u_ref, z, g, guard
+        out = vortex.run(N, VORTEX_STEPS, VORTEX_DT, P_TERMS,
+                         log=lambda s: print(s, flush=True))
+    said = downgrades(caught)
+    check(said == [], f"vortex: downgrade warnings {said}")
+    reps = out["reports"]
+    check(len(reps) == 2 * VORTEX_STEPS and all(
+        r.ok and r.final_backend == "cuda" and r.degradations == ()
+        for r in reps), "vortex: a guard report off 'cuda' or degraded: "
+        f"{[r.summary() for r in reps if r.final_backend != 'cuda']}")
+    calls = [d["calls"] for d in log]
+    main_kernels_ran(kernel_runs(calls), "vortex")
+    kinds = program_kinds([p for c in calls for p in c.programs], "vortex")
+    ms = {}
+    for name in ("refresh_guarded", "apply_plan"):
+        rep_ms = [d["ms"] for d in log if d["name"] == name and all(
+            p.kind == "replay" for p in d["calls"].programs)]
+        check(len(rep_ms) >= VORTEX_STEPS, f"vortex: {name} replayed "
+              f"{len(rep_ms)} times in {VORTEX_STEPS} steps")
+        ms[name] = statistics.median(rep_ms)
+    replanned = sorted({(a.strong_cap, a.weak_cap) for r in reps
+                        for a in r.attempts[1:]})
+    print(f"vortex: N={N}, p={P_TERMS}, f32, {VORTEX_STEPS} RK2 steps on "
+          f"cuda: first step velocity rel_err_inf {err:.3e} at {N_SAMPLE} "
+          f"targets (f64 direct sum; bound {ACC_BOUND['f32']}) in "
+          f"{1e3 * first_s:.1f} ms (eager); tuned caps "
+          f"{out['tuned_caps']}, re-plans {out['replans']} (caps tried "
+          f"{replanned}, final {out['caps']}); impulse drift "
+          f"{out['drift']:.3e} ({out['drifts']}); refresh_guarded "
+          f"{ms['refresh_guarded']:.2f} ms, apply_plan "
+          f"{ms['apply_plan']:.2f} ms (host, median of the replayed "
+          f"calls); {out['s_per_step']:.3f} s a step; program calls by kind "
+          f"{kinds}; solvers released by the memory budget meanwhile "
+          f"{program_memory()['released_sets'] - released}; trace_counts "
+          f"{out['trace_counts']}; phase "
+          f"{time.perf_counter() - t0:.1f} s (host)", flush=True)
+
+
+def quickstart_example(quickstart, torch) -> None:
+    """The quickstart twin at N, normal, p = P_TERMS, f64, B =
+    QUICK_BATCH on the default device: its own asserts, its 512-point
+    error under the f64 bound, ``apply_batched`` dispatched to "cuda",
+    the four main-path kernels run, no downgrade warning; its ms."""
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught, \
+            counting(torch) as box:
+        warnings.simplefilter("always")
+        out = quickstart.run(N, P_TERMS, "normal", batch=QUICK_BATCH,
+                             log=lambda s: print(s, flush=True))
+    said = downgrades(caught)
+    check(said == [], f"quickstart: downgrade warnings {said}")
+    check(out["err"] < ACC_BOUND["f64"], f"quickstart: 512-point error "
+          f"{out['err']:.3e} (bound {ACC_BOUND['f64']})")
+    check(out["dispatched"] == "cuda",
+          f"quickstart: apply_batched dispatched {out['dispatched']}")
+    runs = kernel_runs([box["calls"]])
+    main_kernels_ran(runs, "quickstart")
+    print(f"quickstart: N={N} normal f64 p={P_TERMS}: caps {out['caps']} "
+          f"(batched {out['batched_caps']}); apply first "
+          f"{1e3 * out['first_s']:.1f} ms, second "
+          f"{1e3 * out['second_s']:.1f} ms; rel err {out['err']:.3e} "
+          f"(512 points); apply_batched B={QUICK_BATCH} "
+          f"{1e3 * out['batched_s']:.1f} ms on {out['dispatched']}; kernel "
+          f"runs {runs}; program calls by kind "
+          f"{program_kinds(box['calls'].programs, 'quickstart')}; phase "
+          f"{time.perf_counter() - t0:.1f} s (host)", flush=True)
+
+
+def serve_example(serve_traffic, torch) -> None:
+    """The serve twin at its defaults: every clean request at or below
+    the lattice's top "ok" or "recovered" on "cuda", each poison refused
+    with the reference's typed error, each ``oversize->direct`` request
+    warned once, the four main-path kernels run; requests/s a wave."""
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught, \
+            dispatch_log(torch) as log:
+        warnings.simplefilter("always")
+        out = serve_traffic.run(log=lambda s: None)
+    said = downgrades(caught)
+    direct = []
+    for w, wave in enumerate(out["waves"]):
+        for (n, _, _, kind), (phi, rep) in zip(wave["requests"],
+                                               wave["results"]):
+            tag = f"serve_traffic[wave {w}]: {rep.summary()}"
+            if kind != "ok":
+                check(phi is None and rep.error == POISON_ERRORS[kind],
+                      f"{tag} (poison {kind})")
+            elif n <= 1024:
+                check(rep.status in ("ok", "recovered")
+                      and rep.backend == "cuda" and phi.shape == (n,), tag)
+            else:
+                check(rep.path[:1] == ("oversize->direct",)
+                      and rep.backend == "direct", tag)
+                direct.append(rep)
+        print(f"serve_traffic[wave {w}]: {len(wave['requests'])} requests "
+              f"in {wave['secs']:.3f} s: "
+              f"{len(wave['requests']) / wave['secs']:.2f} requests/s; "
+              f"statuses {[r.status for _, r in wave['results']]}",
+              flush=True)
+    one_warning_each(direct, said, "serve_traffic")
+    calls = [d["calls"] for d in log]
+    runs = kernel_runs(calls)
+    main_kernels_ran(runs, "serve_traffic")
+    kinds = program_kinds([p for c in calls for p in c.programs],
+                          "serve_traffic")
+    stats = {k: out["stats"][k] for k in ("requests", "ok", "recovered",
+                                          "degraded", "rejected",
+                                          "dispatches")}
+    print(f"serve_traffic: warm-up {out['warm_s']:.2f} s; {len(direct)} "
+          f"oversize->direct (one warning each); cumulative {stats}; "
+          f"kernel runs {runs}; program calls by kind {kinds}; phase "
+          f"{time.perf_counter() - t0:.1f} s (host)", flush=True)
+
+
+def substrate_phase(vortex, torch) -> None:
+    """``train_loop`` around the vortex twin's RK2 steps at N on the card:
+    the state is z, the loss the impulse drift. Run A checkpoints every
+    SUB_EVERY steps and fails at step SUB_FAIL (``FailureInjector``);
+    ``restore_latest`` brings the last checkpoint back onto the card
+    (bitwise the state it saved) and run B resumes to SUB_STEPS on a
+    fresh guard; run C goes 0 .. SUB_STEPS uninterrupted on a fresh
+    guard. B's final z is bitwise C's when no run re-planned, else within
+    1e-5 relative (displacements). Prints the save (snapshot) and
+    restore ms and the checkpoint's bytes."""
+    import os
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch import FailureInjector, train_loop
+    from repro_torch.solver import FmmSolver
+
+    t0 = time.perf_counter()
+    z, g, guard, z0, _ = vortex.setup(N, P_TERMS)
+    cfg = guard.cfg
+    g64 = g.to(torch.complex128)
+    imp0 = (g64 * torch.from_numpy(z0).to(z.device)).sum()
+    replans, states = [], {}
+
+    def stepper(tag):
+        guard = FmmSolver.build(cfg).guarded(max_cap_doublings=3)
+
+        def step_fn(state, batch, step):
+            zn, reps = vortex.rk2_step(state, g, guard, VORTEX_DT)
+            replans.extend(r.retries for r in reps)
+            check(all(r.final_backend == "cuda" and r.degradations == ()
+                      for r in reps), f"substrate[{tag}]: {reps}")
+            states[(tag, step)] = zn
+            drift = ((g64 * zn.to(torch.complex128)).sum() - imp0).abs()
+            return zn, {"loss": drift / imp0.abs()}
+        return step_fn
+
+    quiet = dict(log_every=SUB_STEPS, log_fn=lambda s: None)
+    with tempfile.TemporaryDirectory() as d:
+        cm = CheckpointManager(d, keep=2)
+        save_ms, real_save = [], cm.save
+
+        def timed_save(step, tree, blocking=False):
+            _, secs = host_s(lambda: real_save(step, tree, blocking), torch)
+            save_ms.append(1e3 * secs)
+
+        cm.save = timed_save
+        try:
+            train_loop(stepper("A"), z, lambda s: None, start_step=0,
+                       num_steps=SUB_STEPS, ckpt_manager=cm,
+                       ckpt_every=SUB_EVERY,
+                       failure=FailureInjector(fail_at=(SUB_FAIL,)), **quiet)
+            check(False, "substrate: the injected failure did not stop run A")
+        except RuntimeError as e:
+            check(f"injected node failure at step {SUB_FAIL}" in str(e),
+                  f"substrate: run A stopped by {e!r}")
+        cm.wait()
+        (state, step), restore_s = host_s(cm.restore_latest, torch)
+        last = SUB_FAIL - SUB_FAIL % SUB_EVERY
+        saved = states[("A", last - 1)]
+        check(step == last and state.device == z.device
+              and state.dtype == z.dtype
+              and torch.equal(bits(state), bits(saved)),
+              f"substrate: restored step {step} (want {last}) on "
+              f"{state.device} {state.dtype}, not bitwise the saved state")
+        with open(os.path.join(d, f"step_{step:08d}", "manifest.json")) as f:
+            nbytes = sum(m["bytes"] for m in json.load(f)["leaves"].values())
+        z_b, sum_b = train_loop(stepper("B"), state, lambda s: None,
+                                start_step=step, num_steps=SUB_STEPS,
+                                ckpt_manager=cm, ckpt_every=SUB_EVERY,
+                                **quiet)
+    z_c, sum_c = train_loop(stepper("C"), z, lambda s: None, start_step=0,
+                            num_steps=SUB_STEPS, **quiet)
+    check(sum_b["last_step"] == sum_c["last_step"] == SUB_STEPS - 1,
+          f"substrate: summaries {sum_b} / {sum_c}")
+    if any(replans):
+        d_rel = rel_err(z_b - z, z_c - z)
+        check(d_rel <= 1e-5, f"substrate: resumed vs uninterrupted "
+              f"displacement {d_rel:.3e} (re-planned)")
+        case = f"re-planned ({sum(replans)} retries): within {d_rel:.3e}"
+    else:
+        check(torch.equal(bits(z_b), bits(z_c))
+              and sum_b["losses"] == sum_c["losses"][step:],
+              "substrate: the resumed run is not bitwise the uninterrupted "
+              "run")
+        case = "no re-plan: bitwise"
+    print(f"substrate: N={N} f32, failed at step {SUB_FAIL}, restored step "
+          f"{step} onto {state.device} (bitwise the saved state), resumed "
+          f"to {SUB_STEPS}; final z vs uninterrupted: {case}; checkpoint "
+          f"{nbytes} B; save (snapshot) ms "
+          f"{[round(t, 2) for t in save_ms]}; restore "
+          f"{1e3 * restore_s:.2f} ms; impulse drift at the end "
+          f"{sum_c['losses'][-1]:.3e}; median step "
+          f"{1e3 * sum_c['median_step_time']:.1f} ms; phase "
+          f"{time.perf_counter() - t0:.1f} s (host)", flush=True)
 
 
 def register_phases(torch):
@@ -2174,6 +2634,13 @@ def main() -> int:
     fault_walk(torch)
     serve_phase(torch)
     memory_line("faults+serve", torch)
+    degenerate_phase(torch)
+    vortex = load_example("torch_vortex_dynamics")
+    vortex_example(vortex, torch)
+    quickstart_example(load_example("torch_quickstart"), torch)
+    serve_example(load_example("torch_serve_traffic"), torch)
+    substrate_phase(vortex, torch)
+    memory_line("examples+substrate", torch)
     for dt in ("f32", "f64"):
         totals = per_phase_path(dt, served[dt], torch)
         print(f"phases[{dt}]: launches from the host {totals}", flush=True)

@@ -1,3 +1,5 @@
-from .synthetic import particles, particles_numpy, ragged_requests
+from .synthetic import (DataConfig, Prefetcher, lm_batch, particles,
+                        particles_numpy, ragged_requests)
 
-__all__ = ["particles", "particles_numpy", "ragged_requests"]
+__all__ = ["DataConfig", "Prefetcher", "lm_batch", "particles",
+           "particles_numpy", "ragged_requests"]

@@ -1,4 +1,8 @@
-"""The paper's three source distributions (Fig. 5.8), from a numpy seed.
+"""Deterministic synthetic data, a pure function of a numpy seed.
+
+Streams are stateless: a batch is a function of ``(seed, step)``, so a
+restarted worker regenerates any batch with no loader state in a
+checkpoint (``lm_batch``, ``Prefetcher``).
 
 ``particles`` draws exactly the numbers ``repro.data.synthetic.particles``
 draws for the same ``(dist, n, seed)`` — uniform in the unit square,
@@ -9,10 +13,37 @@ request the reference's.
 """
 from __future__ import annotations
 
+import dataclasses
+import queue
+import threading
+
 import numpy as np
 import torch
 
 from ..device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    vocab: int
+    batch: int
+    seq: int
+    seed: int = 0
+
+
+def lm_batch(dc: DataConfig, step: int, device=None) -> dict:
+    """Synthetic token batch, deterministic in ``(seed, step)``: int32
+    ``tokens`` and next-token ``labels`` of shape (batch, seq) on
+    ``device`` (default ``cuda``; ``device="cpu"`` for the CPU), the
+    numbers ``repro.data.synthetic.lm_batch`` draws."""
+    rng = np.random.default_rng(np.random.PCG64((dc.seed, step)))
+    useful_vocab = min(dc.vocab, 1024)
+    a = rng.integers(0, useful_vocab, (dc.batch, 1))
+    b = rng.integers(1, 17, (dc.batch, 1))
+    t = np.arange(dc.seq + 1)[None, :]
+    toks = torch.from_numpy(((a + b * t) % useful_vocab).astype(np.int32))
+    dev = resolve_device(device)
+    return {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
 
 
 def particles_numpy(dist: str, n: int, seed: int = 0):
@@ -92,3 +123,41 @@ def ragged_requests(num: int, *, seed: int = 0, median_n: int = 256,
                 z = z[:0]
                 q = q[:0]
         yield n, z, q, kind
+
+
+class Prefetcher:
+    """Background-thread batch prefetch (depth-k queue): ``get()`` returns
+    ``(step, fn(step))`` for ``start_step``, ``start_step + 1``, ... in
+    order.
+
+    The current CUDA device is per thread: the thread runs ``fn`` on the
+    device that was current where the ``Prefetcher`` was made (when CUDA
+    was initialised there), so the tensors ``fn`` makes land where the
+    consumer's do."""
+
+    def __init__(self, fn, start_step: int = 0, depth: int = 2):
+        self._fn = fn
+        self._q: queue.Queue = queue.Queue(maxsize=depth)
+        self._step = start_step
+        self._device = (torch.cuda.current_device()
+                        if torch.cuda.is_initialized() else None)
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        if self._device is not None:
+            torch.cuda.set_device(self._device)
+        s = self._step
+        while not self._stop.is_set():
+            try:
+                self._q.put((s, self._fn(s)), timeout=0.5)
+                s += 1
+            except queue.Full:
+                continue
+
+    def get(self):
+        return self._q.get()
+
+    def close(self):
+        self._stop.set()

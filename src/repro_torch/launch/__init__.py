@@ -1,5 +1,6 @@
-"""Deployment runtime. Ported so far: ``StragglerMonitor``, the serving
-plane's slow-dispatch detector (``repro_torch.serve.plane``)."""
-from .runtime import StragglerMonitor
+"""Deployment runtime: ``StragglerMonitor`` (also the serving plane's
+slow-dispatch detector, ``repro_torch.serve.plane``), ``FailureInjector``
+and the fault-tolerant step loop ``train_loop``."""
+from .runtime import FailureInjector, StragglerMonitor, train_loop
 
-__all__ = ["StragglerMonitor"]
+__all__ = ["FailureInjector", "StragglerMonitor", "train_loop"]

@@ -9,7 +9,9 @@ serving plane (a failing launch leaving ``serve``, the shed walk's
 warnings, warm-up, no layout rebuilt on a warm wave), and the compiled
 programs (each entry point's first call and replay bitwise its eager
 pipeline, fresh outputs, memory back on release, the memory budget, a
-capture error raised) on the card.
+capture error raised), the degenerate layouts against the CPU run, a
+checkpoint of CUDA tensors restored bitwise, the prefetcher's device and
+the vortex example's re-plans through captured programs on the card.
 Marked ``gpu``: skipped (inside a fixture, never at import) where no
 CUDA card is present. On the machine with the
 card: ``PYTHONPATH=src python -m pytest --noconftest -m gpu
@@ -961,3 +963,129 @@ def test_a_capture_error_raises_and_never_falls_back_to_eager(cuda):
     plain.apply(z, q)
     assert plain.programs()[next(iter(plain.programs()))].captured
     assert bool(torch.isfinite(phi).all())
+
+
+# ---------------------------------------------------------------------------
+# degenerate layouts, checkpoints and the prefetcher on the card
+# ---------------------------------------------------------------------------
+
+DEGENERATE = ["all-coincident", "one-distinct-in-a-cluster", "collinear",
+              "empty-quadrants", "zero-charges", "scale-1e-9", "scale-1e-3",
+              "scale-1e6"]
+
+
+def _bits(t):
+    return _smoke().bits(t)
+
+
+@pytest.mark.parametrize("layout", DEGENERATE)
+def test_degenerate_layouts_on_the_card_match_the_cpu_run(cuda, layout):
+    """Each layout of ``tests/test_torch_helpers.py`` through
+    ``apply_with_health`` on a fresh "cuda" solver: the first call
+    (eager) and the third (a replay) against the port's run on the CPU,
+    which the CPU test holds to the reference: the same ``host_health``,
+    the same finite and NaN pattern, phi within 1e-10 where finite; the
+    replay bitwise the eager call."""
+    from repro_torch.solver import host_health
+
+    cfg = FmmConfig(n=256, nlevels=2, p=12, dtype="f64", strong_cap=32,
+                    weak_cap=64)
+    z, q = _smoke().degenerate_layouts(cfg.n)[layout]
+    ref, h_ref = FmmSolver(cfg, "cuda", "cpu").apply_with_health(z, q)
+    solver = FmmSolver(cfg, "cuda", cuda)
+    (phi, health), host, _ = _runs(lambda: solver.apply_with_health(z, q))
+    assert host == _main_counts()
+    solver.apply_with_health(z, q)
+    phi_r, health_r = solver.apply_with_health(z, q)
+    prog, = solver.programs().values()
+    assert prog.captured and prog.replays == 2
+    assert host_health(health) == host_health(h_ref)
+    got = phi.cpu()
+    assert torch.equal(got.isfinite(), ref.isfinite())
+    assert torch.equal(got.isnan(), ref.isnan())
+    ok = ref.isfinite()
+    if ok.any() and ref[ok].abs().max() > 0:
+        assert _rel(got[ok], ref[ok]) <= 1e-10
+    else:
+        assert torch.equal(got[ok], ref[ok])
+    assert torch.equal(_bits(phi_r), _bits(phi))
+    for a, b in zip(health_r, health):
+        assert torch.equal(_bits(a), _bits(b))
+
+
+def test_checkpoint_of_cuda_tensors_restores_on_the_card_bitwise(cuda,
+                                                                 tmp_path):
+    """A tree of CUDA tensors saved asynchronously, then changed in place
+    before the write: ``restore_latest`` returns the saved values on the
+    card, bit for bit, dtypes kept."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    z = torch.randn(1 << 20, dtype=torch.complex64, device=cuda,
+                    generator=gen)
+    tree = {"z": z, "caps": [torch.tensor(48, device=cuda)],
+            "w": torch.randn(3, 4, dtype=torch.float64, device=cuda,
+                             generator=gen)}
+    want = {"z": z.clone(), "w": tree["w"].clone()}
+    cm = CheckpointManager(str(tmp_path))
+    cm.save(3, tree)
+    z.mul_(2)
+    tree["w"].zero_()
+    got, step = cm.restore_latest()
+    assert step == 3 and got["caps"]["0"].item() == 48
+    for k in ("z", "w"):
+        assert got[k].device == z.device and got[k].dtype == want[k].dtype
+        assert torch.equal(_bits(got[k]), _bits(want[k]))
+
+
+def test_prefetcher_makes_tensors_on_the_current_card(cuda):
+    from repro_torch.data import DataConfig, Prefetcher, lm_batch
+
+    dc = DataConfig(vocab=512, batch=2, seq=8, seed=1)
+    pf = Prefetcher(lambda s: lm_batch(dc, s), start_step=0, depth=2)
+    got = [pf.get() for _ in range(3)]
+    pf.close()
+    for s, batch in got:
+        assert batch["tokens"].device == torch.device(
+            "cuda", torch.cuda.current_device())
+        assert torch.equal(batch["tokens"].cpu(),
+                           lm_batch(dc, s, device="cpu")["tokens"])
+
+
+def test_vortex_replans_through_captured_programs(cuda):
+    """The vortex twin's RK2 steps on the card from caps too small for
+    the layout: the first refresh re-plans (grown caps, a new solver
+    whose programs run eagerly, capture, then replay), every report on
+    "cuda" without degradation, and the positions within 1e-10 of the
+    same steps on the CPU (f64), with the same re-plans."""
+    import importlib.util
+
+    from repro_torch.configs import fmm_config
+    from repro_torch.solver import GuardedSolver
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_vortex_dynamics", ROOT / "examples" / "torch_vortex_dynamics.py")
+    vortex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(vortex)
+    n = 8192
+    cfg = dataclasses.replace(fmm_config(n, p=12, dtype="f64"),
+                              strong_cap=8, weak_cap=16)
+    z0, gamma = vortex.vortex_pair(n)
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        z = torch.from_numpy(z0).to(dev)
+        g = torch.from_numpy(gamma + 0j).to(dev)
+        guard = GuardedSolver(cfg, "cuda", max_cap_doublings=5, device=dev)
+        reports = []
+        for _ in range(4):
+            z, reps = vortex.rk2_step(z, g, guard, 2e-4)
+            reports += reps
+        out.append((z.cpu() - torch.from_numpy(z0),
+                    [r.retries for r in reports], guard))
+    (moved, retries, guard), (moved_cpu, retries_cpu, _) = out
+    assert retries == retries_cpu and retries[0] > 0 and not any(retries[1:])
+    assert _rel(moved, moved_cpu) <= 1e-10
+    progs = guard.solver.programs()
+    assert {k[0] for k in progs} == {"refresh", "apply_plan"}
+    for p in progs.values():
+        assert p.captured and p.replays == p.calls - 1 and p.calls >= 7

@@ -251,6 +251,22 @@ def _layouts(n):
 LAYOUTS = list(_layouts(256))
 
 
+def test_the_smoke_runs_these_layouts_on_the_card():
+    """``chip_smoke.degenerate_layouts`` (the card's copy, which cannot
+    import the reference's generator) draws these layouts bit for bit."""
+    import sys
+    from pathlib import Path
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+    mine = chip_smoke.degenerate_layouts(256)
+    assert list(mine) == LAYOUTS
+    for name, (z, q) in _layouts(256).items():
+        for a, b in zip(mine[name], (z, q)):
+            assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+
+
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_degenerate_layouts_health_and_phi_match_the_reference(layout):
     jcfg, tcfg = configs(n=256, nlevels=2, p=12, dtype="f64", strong_cap=32,
