@@ -143,19 +143,39 @@ Runs top to bottom and exits nonzero on the first failure:
    to SUB_STEPS; the final z bitwise an uninterrupted run's when no run
    re-planned (else within 1e-5); save (snapshot) and restore ms and
    the checkpoint's bytes;
-13. per-phase path: the "cuda" backend without its fused hooks,
+13. parallel: the multi-device substrate (``repro_torch.parallel``,
+   ``repro_torch.launch.mesh``, the elastic checkpoint path): (a) one
+   NCCL rank, mesh (1, 1, 1) ("pod", "data", "model"):
+   ``make_compressed_value_and_grad`` on a 2^20 f32 tree (its gradient
+   within half a quantum of the exact one, the loss exact, the errors
+   the residual), ``ef_allreduce`` against a plain f32 ``all_reduce``
+   (host ms, and the bytes of each read from a profiler trace by
+   ``collective_bytes_traced``); (c) on that mesh the vortex state
+   (2^20 f32 z and gamma) saved after RESUME_STEPS RK2 steps, restored
+   with ``shardings=`` as replicated DTensors (bitwise the saved state)
+   and RESUME_STEPS steps resumed through the replayed programs, bitwise
+   the uninterrupted run, running the four main-path kernels; (b)
+   PAR_RANKS ranks sharing the card over gloo (NCCL refuses two ranks
+   on one device), mesh (2, 2, 2): the reference test's problem within
+   its bounds, and over FEEDBACK_STEPS steps with the errors fed back
+   the gradient plus the pods' mean error equal to the pods' mean
+   exact gradient plus error fed in, within f32 rounding;
+   TELESCOPE_STEPS error-feedback steps of a 2^20 tree whose sent sum
+   telescopes, and ``ef_allreduce`` against ``all_reduce`` over "pod";
+   a failing rank fails the phase;
+14. per-phase path: the "cuda" backend without its fused hooks,
    registered as "cuda-phases", on the same problems: M2L once per
    level, L2P and P2P once, classify and P2L once, the fused evaluation
    never; the same accuracy bounds; in f64 phi within 1e-10 of the main
    path's and the reference backend's;
-14. batched: ``apply_batched`` with B = 4 at N = 2^20 in f32 on both
+15. batched: ``apply_batched`` with B = 4 at N = 2^20 in f32 on both
    paths — the same launches as one apply, each row equal to that
    problem's ``apply``;
-15. direct baseline: ``nbody_direct`` all-pairs at N = 2^20 in f32 and
+16. direct baseline: ``nbody_direct`` all-pairs at N = 2^20 in f32 and
    f64 (one launch each, its source splits printed), timed beside the
    FMM apply, and the paper's Fig. 5.5 sweep N = 2^9 .. 2^20 with the
    break-even N (the FMM apply replayed; its first call printed);
-16. prints one JSON line with every kernel's launches (from the host in
+17. prints one JSON line with every kernel's launches (from the host in
    the main path's run), error, times and
    bound (N-body also its splits at both shapes, K, registers and SASS
    instructions a pair; M2L its wide-row times and shared memory), the
@@ -2367,6 +2387,331 @@ def substrate_phase(vortex, torch) -> None:
           f"{time.perf_counter() - t0:.1f} s (host)", flush=True)
 
 
+PAR_SIDE = 1024                 # the parameter tree {"w": (1024, 1024)}: 2^20 f32
+PAR_BATCH = 256
+PAR_RANKS = 8
+PAR_MESH = (2, 2, 2)
+PAR_AXES = ("pod", "data", "model")
+PAR_REPS = 20
+TELESCOPE_STEPS = 3
+FEEDBACK_STEPS = 2
+RESUME_STEPS = 2
+
+
+def square_loss(p, b):
+    """The loss of the compressed-gradient legs: mean((b @ w)^2)."""
+    return ((b @ p["w"]) ** 2).mean()
+
+
+def reference_loss(p, b):
+    """The reference test's loss (``tests/test_runtime_substrate.py``
+    ``test_compressed_allreduce_multidevice_subprocess``)."""
+    return ((b @ p["w"][:2, :]) ** 2).mean()
+
+
+def median_ms(fn, reps: int, torch, warmup: int = 2) -> float:
+    """Median host milliseconds of ``reps`` calls, each ending in a
+    synchronize, after ``warmup`` calls."""
+    for _ in range(warmup):
+        fn()
+    return statistics.median(1e3 * host_s(fn, torch)[1] for _ in range(reps))
+
+
+def wire_bytes(fn, torch) -> dict:
+    """The collective bytes of one ``fn()`` call, read from a
+    ``torch.profiler`` trace (``collective_bytes_traced``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.hlo_analysis import collective_bytes_traced
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return collective_bytes_traced(prof)
+
+
+def collective_legs(pod, dev, torch, reps: int = PAR_REPS) -> dict:
+    """``ef_allreduce`` against a plain f32 ``all_reduce`` of the 2^20
+    f32 parameter tree over the process group ``pod``: median host ms
+    of each and the bytes each puts on the wire (profiler trace)."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import ef_allreduce
+
+    g = torch.randn(PAR_SIDE, PAR_SIDE, device=dev,
+                    generator=torch.Generator(dev).manual_seed(SEED))
+    err = torch.zeros_like(g)
+    ef = lambda: ef_allreduce(g, err, pod)  # noqa: E731
+    plain = lambda: dist.all_reduce(g.clone(), group=pod)  # noqa: E731
+    return {"ef_ms": median_ms(ef, reps, torch),
+            "plain_ms": median_ms(plain, reps, torch),
+            "ef_bytes": wire_bytes(ef, torch),
+            "plain_bytes": wire_bytes(plain, torch)}
+
+
+def nccl_leg(mesh, torch) -> dict:
+    """(a) ``make_compressed_value_and_grad`` on one rank's mesh: the
+    2^20 f32 tree's gradient within half a quantum of the exact one (one
+    pod: the mean is the dequantized gradient), the loss exact, the
+    errors the residual on a leading pod axis; ``ef_allreduce`` against a
+    plain ``all_reduce`` (ms, bytes)."""
+    from repro_torch.parallel import (init_pod_errors,
+                                      make_compressed_value_and_grad)
+
+    dev = torch.device(mesh.device_type)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    params = {"w": torch.randn(PAR_SIDE, PAR_SIDE, device=dev,
+                               generator=gen) / PAR_SIDE ** 0.5}
+    batch = torch.randn(PAR_BATCH, PAR_SIDE, device=dev, generator=gen)
+    vg = make_compressed_value_and_grad(square_loss, mesh)
+    errors = init_pod_errors(params, mesh.shape[0])
+    (loss, grads, errors), secs = host_s(lambda: vg(params, batch, errors),
+                                         torch)
+    _, again = host_s(lambda: vg(params, batch, init_pod_errors(
+        params, mesh.shape[0])), torch)
+    exact, exact_loss = torch.func.grad_and_value(square_loss)(params, batch)
+    scale = float(exact["w"].abs().max()) / 127.0
+    tol = 127 * 2.0 ** -22 * scale       # f32 rounding of a code times scale
+    gerr = float((grads["w"] - exact["w"]).abs().max())
+    resid = (exact["w"] - grads["w"]) - errors["w"].full_tensor()[0]
+    check(gerr <= 0.5 * scale + tol and float(resid.abs().max()) <= tol
+          and torch.equal(loss, exact_loss)
+          and tuple(errors["w"].shape) == (mesh.shape[0], PAR_SIDE, PAR_SIDE),
+          f"parallel(a): grad err {gerr:.3e} (quantum {scale:.3e}), "
+          f"residual {float(resid.abs().max()):.3e}, loss {float(loss)} vs "
+          f"{float(exact_loss)}, errors {tuple(errors['w'].shape)}")
+    out = collective_legs(mesh.get_group("pod"), dev, torch)
+    out.update(vg_ms=1e3 * secs, vg2_ms=1e3 * again, grad_err=gerr,
+               quantum=scale)
+    return out
+
+
+def parallel_rank(rank, world, device_type="cuda"):
+    """(b) one of PAR_RANKS ranks on the card's one device over gloo, mesh
+    PAR_MESH: the reference test's problem (its bounds against the exact
+    gradient and loss), TELESCOPE_STEPS error-feedback steps of the 2^20
+    tree over "pod" (what was sent sums to the true mean minus the final
+    errors' mean within f32 rounding), and ``ef_allreduce`` against a
+    plain ``all_reduce`` (ms, bytes). Returns rank 0's numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_test_mesh
+    from repro_torch.parallel import (ef_allreduce_tree, init_errors,
+                                      init_pod_errors,
+                                      make_compressed_value_and_grad)
+
+    mesh = make_test_mesh(PAR_MESH, PAR_AXES, device_type)
+    dev = torch.device(device_type)
+    vg = make_compressed_value_and_grad(reference_loss, mesh)
+    w = torch.ones(8, 8, device=dev)
+    b = torch.arange(16.0, device=dev).reshape(8, 2)
+    t0 = time.perf_counter()
+    # plain tensors (the full arrays on every rank): redistributing CUDA
+    # DTensors over gloo crashes torch 2.11 (its functional all_gather)
+    loss, grads, _ = vg({"w": w}, b, init_pod_errors({"w": w}, 2))
+    torch.cuda.synchronize()
+    vg_ms = 1e3 * (time.perf_counter() - t0)
+    exact, exact_loss = torch.func.grad_and_value(reference_loss)({"w": w}, b)
+    rel = float((grads["w"] - exact["w"]).abs().max()
+                / exact["w"].abs().max())
+    dloss = abs(float(loss) - float(exact_loss))
+    check(rel < 0.02 and dloss < 1e-5,
+          f"parallel(b) rank {rank}: grad rel err {rel:.3e} (< 0.02), loss "
+          f"{float(loss)} vs {float(exact_loss)} (within 1e-5)")
+
+    pod = mesh.get_group("pod")
+    fed_gap, fed_bound = feedback_steps(vg, w, b, mesh, pod, torch)
+    check(fed_gap <= fed_bound, f"parallel(b) rank {rank}: errors fed back: "
+          f"grad + mean error off the exact mean plus error in by "
+          f"{fed_gap:.3e} > {fed_bound:.3e}")
+    gen = torch.Generator(dev).manual_seed(SEED + mesh.get_coordinate()[0])
+    shapes = {"w": (PAR_SIDE, PAR_SIDE)}
+    grads = [{k: torch.randn(s, device=dev, generator=gen) * 10.0 ** (t - 1)
+              for k, s in shapes.items()} for t in range(TELESCOPE_STEPS)]
+    err = init_errors(grads[0])
+    sent = {k: torch.zeros(s, device=dev, dtype=torch.float64)
+            for k, s in shapes.items()}
+    for g in grads:
+        red, err = ef_allreduce_tree(g, err, pod)
+        for k in sent:
+            sent[k] += red[k].double()
+    gap, bound = 0.0, 0.0
+    for k in shapes:
+        true = sum(g[k].double() for g in grads)
+        want = true - err[k].double()
+        dist.all_reduce(want, group=pod)
+        want /= dist.get_world_size(pod)
+        top = true.abs().max()
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=pod)
+        gap = max(gap, float((sent[k] - want).abs().max()))
+        bound = max(bound, 3 * TELESCOPE_STEPS * 2.0 ** -23 * float(top))
+    check(gap <= bound, f"parallel(b) rank {rank}: error feedback does not "
+          f"telescope: {gap:.3e} > {bound:.3e}")
+    out = collective_legs(pod, dev, torch)
+    out.update(vg_ms=vg_ms, rel=rel, dloss=dloss, gap=gap, bound=bound,
+               fed_gap=fed_gap, fed_bound=fed_bound)
+    return out
+
+
+def feedback_steps(vg, w, b, mesh, pod, torch,
+                   steps: int = FEEDBACK_STEPS) -> tuple[float, float]:
+    """``steps`` calls of the reference problem's ``vg``, each fed the
+    errors the last returned (as the full (npods, ...) array): at each,
+    grad + mean_p(new error_p) must equal mean_p(exact pod gradient_p +
+    error fed in_p), the identity error feedback keeps, within f32
+    rounding (4 eps max |y|). A vg that dropped its incoming errors, or
+    took another pod's, is off by up to half a quantum (127 / 2 times
+    that). Returns the worst gap and its bound. The pods' rows are
+    summed with ``all_reduce`` over ``pod`` (gloo's CUDA DTensor
+    collectives are not used)."""
+    import torch.distributed as dist
+
+    from repro_torch.parallel import init_pod_errors
+
+    npods, me = mesh.shape[0], mesh.get_coordinate()[0]
+    exact = torch.func.grad(reference_loss)(
+        {"w": w.double()}, b.double().chunk(npods)[me])["w"]
+
+    def pods_mean(x):
+        x = x.clone()
+        dist.all_reduce(x, group=pod)
+        return x / npods
+
+    errors = init_pod_errors({"w": w}, npods)["w"]
+    gap, bound = 0.0, 0.0
+    for _ in range(steps):
+        _, grads, new = vg({"w": w}, b, {"w": errors})
+        y = exact + errors[me].double()
+        top = y.abs().max()
+        dist.all_reduce(top, op=dist.ReduceOp.MAX, group=pod)
+        mine = new["w"].to_local()[0].double()
+        diff = grads["w"].double() + pods_mean(mine) - pods_mean(y)
+        gap = max(gap, float(diff.abs().max()))
+        bound = max(bound, 4 * 2.0 ** -23 * float(top))
+        full = torch.zeros((npods,) + tuple(w.shape), device=w.device)
+        full[me] = new["w"].to_local()[0]
+        dist.all_reduce(full, group=pod)      # every pod's errors
+        errors = full
+    return gap, bound
+
+
+def resume_leg(mesh, vortex, n: int, torch, steps: int = RESUME_STEPS):
+    """(c) The vortex state (z and gamma, f32 complex) after ``steps`` RK2
+    steps at ``n`` saved, restored with ``shardings=`` as replicated
+    DTensors on ``mesh`` (bitwise the saved state), and ``steps`` steps
+    resumed from their local tensors through the guard's replayed
+    programs: bitwise the uninterrupted run. Returns the save and
+    restore ms, the checkpoint's bytes and the resumed steps' kernel runs
+    and program calls."""
+    import os
+    import tempfile
+
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.parallel import NamedSharding, PartitionSpec as PS
+    from repro_torch.solver import GuardedSolver
+
+    z, g, guard, _, _ = vortex.setup(n, P_TERMS)
+    for _ in range(steps):
+        z, _ = vortex.rk2_step(z, g, guard, VORTEX_DT)
+    with tempfile.TemporaryDirectory() as d:
+        _, save_s = host_s(lambda: save_checkpoint(d, steps, {"z": z,
+                                                             "gamma": g}),
+                           torch)
+        z_ref = z
+        for _ in range(steps):
+            z_ref, _ = vortex.rk2_step(z_ref, g, guard, VORTEX_DT)
+        rep = NamedSharding(mesh, PS())
+        (tree, step), restore_s = host_s(lambda: restore_checkpoint(
+            d, shardings={"z": rep, "gamma": rep}), torch)
+        nbytes = sum(os.path.getsize(os.path.join(d, f"step_{step:08d}", f))
+                     for f in ("z.npy", "gamma.npy"))
+    check(step == steps and all(
+        isinstance(v, DTensor) and v.device_mesh is mesh
+        and tuple(v.placements) == rep.placements for v in tree.values()),
+        f"parallel(c): restored step {step}, "
+        f"{[(type(v).__name__, getattr(v, 'placements', None)) for v in tree.values()]}")
+    zr, gr = tree["z"].to_local(), tree["gamma"].to_local()
+    check(zr.device == z.device and torch.equal(bits(zr), bits(z))
+          and torch.equal(bits(gr), bits(g)),
+          "parallel(c): the restored state is not bitwise the saved one")
+    with method_log(GuardedSolver, ("refresh_guarded", "apply_plan"),
+                    torch) as log:
+        for _ in range(steps):
+            zr, reps = vortex.rk2_step(zr, gr, guard, VORTEX_DT)
+            check(all(r.final_backend == "cuda" and r.degradations == ()
+                      and r.retries == 0 for r in reps),
+                  f"parallel(c): {[r.summary() for r in reps]}")
+    check(torch.equal(bits(zr), bits(z_ref)),
+          "parallel(c): the resumed run is not bitwise the uninterrupted one")
+    calls = [d["calls"] for d in log]
+    kinds = program_kinds([p for c in calls for p in c.programs],
+                          "parallel(c)")
+    check(kinds["replay"] == 4 * steps and kinds["eager"] + kinds["capture"]
+          == 0, f"parallel(c): resumed program calls {kinds} (want "
+          f"{4 * steps} replays)")
+    return {"save_ms": 1e3 * save_s, "restore_ms": 1e3 * restore_s,
+            "bytes": nbytes, "runs": kernel_runs(calls), "kinds": kinds}
+
+
+def parallel_phase(vortex, torch) -> None:
+    """The multi-device substrate on the card: (a) and (c) on one NCCL
+    rank (mesh (1, 1, 1)), (b) on PAR_RANKS gloo ranks sharing the card
+    (NCCL refuses two ranks on one device)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_test_mesh, mesh_info
+    from repro_torch.testing.ranks import run_ranks
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/store",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_test_mesh((1, 1, 1), PAR_AXES)
+            a = nccl_leg(mesh, torch)
+            print(f"parallel(a): world 1, nccl, mesh {mesh_info(mesh)}; "
+                  f"make_compressed_value_and_grad on 2^20 f32 "
+                  f"{a['vg_ms']:.2f} ms (first call, NCCL's communicator "
+                  f"made in it), {a['vg2_ms']:.2f} ms (second), grad within "
+                  f"{a['grad_err']:.3e} of exact (quantum {a['quantum']:.3e});"
+                  f" ef_allreduce {a['ef_ms']:.4f} ms, {a['ef_bytes']} B; "
+                  f"plain all_reduce {a['plain_ms']:.4f} ms, "
+                  f"{a['plain_bytes']} B (host, median of {PAR_REPS})",
+                  flush=True)
+            c = resume_leg(mesh, vortex, N, torch)
+            main_kernels_ran(c["runs"], "parallel(c)")
+            print(f"parallel(c): world 1, nccl; vortex N={N} f32 state "
+                  f"(z, gamma; {c['bytes']} B) saved after {RESUME_STEPS} "
+                  f"RK2 steps in {c['save_ms']:.2f} ms, restored as "
+                  f"replicated DTensors in {c['restore_ms']:.2f} ms (bitwise),"
+                  f" {RESUME_STEPS} steps resumed: bitwise the uninterrupted "
+                  f"run; kernel runs {c['runs']}, program calls {c['kinds']}",
+                  flush=True)
+        finally:
+            dist.destroy_process_group()
+    t1 = time.perf_counter()
+    b = run_ranks(parallel_rank, PAR_RANKS, backend="gloo", timeout=600)[0]
+    print(f"parallel(b): world {PAR_RANKS}, gloo (CUDA tensors on one card), "
+          f"mesh {PAR_MESH}; reference problem: grad rel err {b['rel']:.3e} "
+          f"(< 0.02), loss off by {b['dloss']:.3e} (< 1e-5), "
+          f"{b['vg_ms']:.2f} ms; {FEEDBACK_STEPS} steps errors fed back: "
+          f"grad + mean error - (exact + error in) {b['fed_gap']:.3e} (bound "
+          f"{b['fed_bound']:.3e}); {TELESCOPE_STEPS} error-feedback steps of "
+          f"2^20: sent - (true - error) {b['gap']:.3e} (bound "
+          f"{b['bound']:.3e}); over 'pod' ef_allreduce {b['ef_ms']:.3f} ms, "
+          f"{b['ef_bytes']} B; plain all_reduce {b['plain_ms']:.3f} ms, "
+          f"{b['plain_bytes']} B (host, median of {PAR_REPS}); spawn and "
+          f"run {time.perf_counter() - t1:.1f} s", flush=True)
+    print(f"parallel: phase {time.perf_counter() - t0:.1f} s (host)",
+          flush=True)
+
+
 def register_phases(torch):
     """Register the per-phase backend: "cuda" without its fused hooks."""
     import dataclasses
@@ -2641,6 +2986,8 @@ def main() -> int:
     serve_example(load_example("torch_serve_traffic"), torch)
     substrate_phase(vortex, torch)
     memory_line("examples+substrate", torch)
+    parallel_phase(vortex, torch)
+    memory_line("parallel", torch)
     for dt in ("f32", "f64"):
         totals = per_phase_path(dt, served[dt], torch)
         print(f"phases[{dt}]: launches from the host {totals}", flush=True)

@@ -27,10 +27,17 @@ Departures from the reference:
   * A leaf numpy cannot hold (``torch.bfloat16``) raises ``DTypeError``;
     it is not widened.
   * Restore returns tensors, on ``device`` (default: the CUDA card;
-    ``device="cpu"`` for the CPU). ``shardings`` has no DTensor meaning
-    yet: it is one ``torch.device`` for every leaf, or a pytree of
-    devices matching the saved tree (leaves it does not name go to
-    ``device``).
+    ``device="cpu"`` for the CPU). ``shardings`` is one placement for
+    every leaf, or a pytree of placements matching the saved tree
+    (leaves it does not name go to ``device``); a placement is a
+    ``torch.device`` or a ``repro_torch.parallel.NamedSharding``.
+  * Elastic: a leaf restored with a ``NamedSharding`` comes back as a
+    ``DTensor`` on its mesh (every rank of the mesh restores), whatever
+    mesh it was saved from. A ``DTensor`` leaf is saved as its full
+    logical array (``full_tensor()``, a collective: every rank of its
+    mesh saves); with more than one rank, rank 0 alone copies the leaves
+    to the host and writes, and ``save_checkpoint`` returns on every rank
+    once the files are on disk.
 """
 from __future__ import annotations
 
@@ -43,9 +50,11 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..errors import DTypeError
+from ..parallel.sharding import NamedSharding, to_sharding
 
 
 def _flatten(tree, prefix=""):
@@ -72,6 +81,11 @@ def _unflatten(flat: dict[str, Any]):
             node = node.setdefault(p, {})
         node[parts[-1]] = val
     return root
+
+
+def _is_dtensor(leaf) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(leaf, DTensor)
 
 
 def _host(key: str, leaf, copy: bool) -> np.ndarray:
@@ -112,10 +126,34 @@ def _write(ckpt_dir: str, step: int, flat: dict[str, np.ndarray]) -> str:
     return final
 
 
+def _snapshot(flat: dict, copy: bool) -> tuple[dict | None, bool]:
+    """(the leaves on the host, or None on a rank that does not write;
+    whether the ranks meet after the write). A ``DTensor`` leaf is
+    gathered to its full logical array on every rank of its mesh
+    (``full_tensor()``, a collective); with ``DTensor`` leaves on more
+    than one rank only rank 0 writes, so only rank 0 copies to the
+    host."""
+    shared = (any(_is_dtensor(v) for v in flat.values())
+              and dist.is_initialized() and dist.get_world_size() > 1)
+    writes = not shared or dist.get_rank() == 0
+    host = {}
+    for k, v in flat.items():
+        if _is_dtensor(v):
+            v = v.full_tensor()
+        if writes:
+            host[k] = _host(k, v, copy)
+    return (host if writes else None), shared
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree) -> str:
     """Atomic, synchronous save. Returns the final directory."""
-    return _write(ckpt_dir, step, {k: _host(k, v, copy=False)
-                                   for k, v in _flatten(tree).items()})
+    host, shared = _snapshot(_flatten(tree), copy=False)
+    final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if host is not None:
+        final = _write(ckpt_dir, step, host)
+    if shared:
+        dist.barrier()
+    return final
 
 
 def latest_step(ckpt_dir: str) -> int | None:
@@ -129,9 +167,11 @@ def latest_step(ckpt_dir: str) -> int | None:
 def restore_checkpoint(ckpt_dir: str, step: int | None = None,
                        shardings=None, *, device=None):
     """Load a checkpoint (the latest when ``step`` is None) as a pytree of
-    tensors. Returns ``(tree, step)``. Each leaf goes to its device in
-    ``shardings`` (one device for all, or a pytree of devices), else to
-    ``device`` (default: the CUDA card)."""
+    tensors. Returns ``(tree, step)``. Each leaf goes to its placement in
+    ``shardings`` (one for all, or a pytree): a device, or a
+    ``NamedSharding`` (a ``DTensor`` on its mesh: the elastic path, the
+    mesh may differ from save time); else to ``device`` (default: the
+    CUDA card)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -145,14 +185,21 @@ def restore_checkpoint(ckpt_dir: str, step: int | None = None,
         if os.path.getsize(path) < meta["bytes"]:
             raise IOError(f"corrupt checkpoint leaf {key}")
         flat[key] = np.load(path)
-    if shardings is None or isinstance(shardings, (str, torch.device)):
-        dev = resolve_device(shardings if shardings is not None else device)
-        placed = dict.fromkeys(flat, dev)
+    if shardings is None or isinstance(shardings, (str, torch.device,
+                                                   NamedSharding)):
+        placed = dict.fromkeys(flat, shardings)
     else:
         named = _flatten(shardings)
-        placed = {k: resolve_device(named.get(k, device)) for k in flat}
-    tree = _unflatten({k: torch.from_numpy(a).to(placed[k])
-                       for k, a in flat.items()})
+        placed = {k: named.get(k) for k in flat}
+
+    def place(a, where):
+        if isinstance(where, NamedSharding):
+            dev = resolve_device(where.mesh.device_type)
+            return to_sharding(torch.from_numpy(a).to(dev), where)
+        return torch.from_numpy(a).to(resolve_device(
+            where if where is not None else device))
+
+    tree = _unflatten({k: place(a, placed[k]) for k, a in flat.items()})
     return tree, step
 
 
@@ -169,9 +216,13 @@ class CheckpointManager:
     def save(self, step: int, tree, blocking: bool = False):
         """Snapshot ``tree`` to host memory (a copy of every leaf: the
         caller may change its tensors in place as soon as this returns),
-        then write it in a background thread."""
+        then write it in a background thread (with ``DTensor`` leaves on
+        more than one rank: rank 0's thread; the other ranks only join
+        the gather)."""
         self.wait()
-        host = {k: _host(k, v, copy=True) for k, v in _flatten(tree).items()}
+        host, _ = _snapshot(_flatten(tree), copy=True)
+        if host is None:
+            return
 
         def work():
             try:

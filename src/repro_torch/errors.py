@@ -22,6 +22,8 @@ failed:
                        before it was dispatched (``repro_torch.serve``)
   OversizedRequestError   a served request is larger than the bucket
                        lattice and the direct fall-back bound
+  MeshError            a device mesh does not fit the process group
+                       (``repro_torch.launch.mesh``)
 
 and one warning, ``BackendDowngradeWarning``: an entry point dispatches
 another backend than the one asked for (``apply_batched`` on a
@@ -100,6 +102,13 @@ class OversizedRequestError(ValidationError):
 class DeviceUnavailableError(FmmError, RuntimeError):
     """The requested device is not usable in this process (e.g. the
     default ``cuda`` device on a machine without a CUDA card)."""
+
+
+class MeshError(FmmError, ValueError):
+    """A device mesh was asked for that the process group cannot hold:
+    no default process group, or a world of another size than the
+    mesh's (``jax.make_mesh`` refuses a mesh larger than its devices with
+    a ``ValueError``)."""
 
 
 class BackendDowngradeWarning(RuntimeWarning):

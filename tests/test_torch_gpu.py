@@ -10,8 +10,10 @@ warnings, warm-up, no layout rebuilt on a warm wave), and the compiled
 programs (each entry point's first call and replay bitwise its eager
 pipeline, fresh outputs, memory back on release, the memory budget, a
 capture error raised), the degenerate layouts against the CPU run, a
-checkpoint of CUDA tensors restored bitwise, the prefetcher's device and
-the vortex example's re-plans through captured programs on the card.
+checkpoint of CUDA tensors restored bitwise, the prefetcher's device,
+the vortex example's re-plans through captured programs on the card, and
+the multi-device legs on one NCCL rank (the compressed gradient and its
+bytes on the wire, an elastic restore resumed bitwise).
 Marked ``gpu``: skipped (inside a fixture, never at import) where no
 CUDA card is present. On the machine with the
 card: ``PYTHONPATH=src python -m pytest --noconftest -m gpu
@@ -1089,3 +1091,48 @@ def test_vortex_replans_through_captured_programs(cuda):
     assert {k[0] for k in progs} == {"refresh", "apply_plan"}
     for p in progs.values():
         assert p.captured and p.replays == p.calls - 1 and p.calls >= 7
+
+
+@pytest.fixture
+def nccl_mesh(cuda, tmp_path):
+    """A one-rank NCCL process group and its (1, 1, 1) ("pod", "data",
+    "model") mesh on the card, torn down after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import make_test_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        yield make_test_mesh((1, 1, 1), ("pod", "data", "model"))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_compressed_gradient_and_wire_bytes_on_one_nccl_rank(nccl_mesh,
+                                                             monkeypatch):
+    """The smoke's parallel leg (a) at 256 x 256: the compressed gradient
+    within half a quantum of the exact one, the loss exact, the errors the
+    residual (its own gates); the bytes NCCL's collectives put on the wire,
+    read from a profiler trace: the int32 codes and the f32 scale against
+    a plain f32 all_reduce."""
+    smoke = _smoke()
+    monkeypatch.setattr(smoke, "PAR_SIDE", 256)
+    monkeypatch.setattr(smoke, "PAR_REPS", 3)
+    out = smoke.nccl_leg(nccl_mesh, torch)
+    n = 256 * 256
+    assert out["ef_bytes"] == {"all-reduce": 4 * n + 4, "total": 4 * n + 4}
+    assert out["plain_bytes"] == {"all-reduce": 4 * n, "total": 4 * n}
+
+
+def test_elastic_restore_resumes_bitwise_on_the_card(nccl_mesh):
+    """The smoke's parallel leg (c) at n = 8192: the vortex state saved,
+    restored with ``shardings=`` as replicated DTensors on the one-rank
+    mesh (bitwise), resumed through the replayed programs bitwise the
+    uninterrupted run, running the four main-path kernels."""
+    smoke = _smoke()
+    smoke.observe_programs()
+    out = smoke.resume_leg(nccl_mesh, smoke.load_example(
+        "torch_vortex_dynamics"), 8192, torch)
+    smoke.main_kernels_ran(out["runs"], "resume")
+    assert out["kinds"]["replay"] == 4 * smoke.RESUME_STEPS
