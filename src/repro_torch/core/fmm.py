@@ -24,12 +24,11 @@ back to rank order by a gather (each rank owns one slot) — no
 ``index_add_``, whose atomics would make CUDA results change from run to
 run.
 
-Each phase runs inside a ``torch.profiler.record_function`` range named
-``fmm::<phase>`` (tree, connectivity, upward, downward, evaluation), so
-a profiler trace of an apply reads the time of each phase; unless M2L
-is level-fused, ``fmm::m2l[<level>]`` ranges mark it inside the
-downward pass, and unless the evaluation is fused, ``fmm::l2p``,
-``fmm::m2p`` and ``fmm::p2p`` mark its parts.
+Each phase runs inside a ``repro_torch.trace.phase`` named
+``fmm::<phase>`` (tree, connectivity, upward, downward, evaluation): a
+host span on an eager call, and a device mark inside a captured graph,
+so that every replay reads the device time of each phase
+(``repro_torch.trace``).
 """
 from __future__ import annotations
 
@@ -38,8 +37,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import trace
 from ..device import resolve_device
 from ..errors import CapOverflowError
 from . import expansions as E
@@ -315,19 +314,17 @@ def downward_with(mult, tree: Tree, conn: Connectivity, cfg: FmmConfig,
 def _fold_levels(mult, tree: Tree, conn: Connectivity, cfg: FmmConfig,
                  m2l, rho, p2l_impl) -> torch.Tensor:
     """L2L from the root down, adding each level's ``m2l(...)`` as it
-    goes (inside an ``fmm::m2l[<level>]`` range), then the leaf P2L."""
+    goes, then the leaf P2L."""
     B = mult[-1].shape[0]
     local = torch.zeros((B, 1, cfg.p + 1), dtype=mult[-1].dtype,
                         device=mult[-1].device)
     for l in range(1, cfg.nlevels + 1):
         local = l2l_level(local, tree, l, cfg, rho[l], rho[l - 1])
-        with record_function(f"fmm::m2l[{l}]"):
-            local = local + m2l(mult[l], conn.weak[l], tree.centers[l], cfg,
-                                rho[l])
+        local = local + m2l(mult[l], conn.weak[l], tree.centers[l], cfg,
+                            rho[l])
     if cfg.nlevels == 0:
-        with record_function("fmm::m2l[0]"):
-            local = local + m2l(mult[0], conn.weak[0], tree.centers[0], cfg,
-                                rho[0])
+        local = local + m2l(mult[0], conn.weak[0], tree.centers[0], cfg,
+                            rho[0])
     return _apply_p2l(local, tree, conn, cfg, rho, p2l_impl)
 
 
@@ -441,9 +438,9 @@ def fmm_build(z: torch.Tensor, q: torch.Tensor, cfg: FmmConfig,
     ``connect`` the connectivity builder (default: this module's
     ``build_connectivity`` binding, read at the call)."""
     connect = connect or build_connectivity
-    with record_function("fmm::tree"):
+    with trace.phase("fmm::tree"):
         tree = build_tree(z, q, cfg)
-    with record_function("fmm::connectivity"):
+    with trace.phase("fmm::connectivity"):
         conn = connect(tree, cfg, leaf_classify_impl=leaf_classify_impl)
     return FmmPlan(tree=tree, conn=conn)
 
@@ -466,10 +463,10 @@ def fmm_evaluate(plan: FmmPlan, cfg: FmmConfig, p2p_impl=None,
     Hooks left ``None`` run the plain sweeps.
     """
     tree, conn = plan.tree, plan.conn
-    with record_function("fmm::upward"):
+    with trace.phase("fmm::upward"):
         mult = upward(tree, cfg)
 
-    with record_function("fmm::downward"):
+    with trace.phase("fmm::downward"):
         if m2l_fused_impl is not None:
             local = downward_fused(mult, tree, conn, cfg, m2l_fused_impl,
                                    p2l_impl)
@@ -478,19 +475,16 @@ def fmm_evaluate(plan: FmmPlan, cfg: FmmConfig, p2p_impl=None,
         else:
             local = downward_with(mult, tree, conn, cfg, m2l_impl, p2l_impl)
 
-    with record_function("fmm::evaluation"):
+    with trace.phase("fmm::evaluation"):
         if eval_fused_impl is not None:
             return eval_fused_impl(local, mult[cfg.nlevels], tree, conn, cfg)
-        with record_function("fmm::l2p"):
-            phi = (l2p(local, tree, cfg) if l2p_impl is None
-                   else l2p_impl(local, tree, cfg))
+        phi = (l2p(local, tree, cfg) if l2p_impl is None
+               else l2p_impl(local, tree, cfg))
         if cfg.use_p2l_m2p:
-            with record_function("fmm::m2p"):
-                phi = m2p_sweep(phi, mult[cfg.nlevels], tree, conn, cfg)
-        with record_function("fmm::p2p"):
-            if p2p_impl is None:
-                return p2p_sweep(phi, tree, conn, cfg)
-            return phi + p2p_impl(tree, conn, cfg)
+            phi = m2p_sweep(phi, mult[cfg.nlevels], tree, conn, cfg)
+        if p2p_impl is None:
+            return p2p_sweep(phi, tree, conn, cfg)
+        return phi + p2p_impl(tree, conn, cfg)
 
 
 def unsort(phi_sorted: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:

@@ -19,11 +19,8 @@ that a run went through the kernel: it rises only where a kernel was
 actually enqueued. A call made while the stream is being captured into
 a CUDA graph enqueues nothing: it counts in ``recorded_counts()``
 instead, and the graph's replays launch the kernel without a host call
-(``repro_torch.solver.program`` counts those). Each launch runs inside a
-``torch.profiler``
-``record_function`` range ``kernel::<name>``, so a profiler trace
-attributes the kernel's device time to the range around it (the
-pipeline's ``fmm::<phase>`` ranges).
+(``repro_torch.solver.program`` counts those). A profiler trace names
+each kernel by its own device name.
 """
 from __future__ import annotations
 
@@ -35,7 +32,6 @@ import subprocess
 from pathlib import Path
 
 import torch
-from torch.profiler import record_function
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -151,8 +147,7 @@ class CudaLibrary:
                             f"{len(self.signatures[symbol]) - 1} arguments "
                             f"before the stream, got {len(conv)}")
         lib = self.lib()
-        with record_function(f"kernel::{self.name}"):
-            rc = getattr(lib, symbol)(*conv, stream)
+        rc = getattr(lib, symbol)(*conv, stream)
         if rc != 0:
             msg = lib.repro_error_string(rc).decode()
             raise RuntimeError(f"{self.name}:{symbol} launch failed: "

@@ -28,6 +28,15 @@ device in one ``torch.as_tensor`` a dispatch, and its phi copied back
 before the dispatch's clock stops, so the straggler monitor times the
 device's work.
 
+Spans (``repro_torch.trace``, on the trace's clock, not the plane's
+``clock``): ``serve::wave`` is one ``serve`` call; inside it
+``serve::admit`` (admission of the wave), and for each dispatch
+``serve::cache`` (the ``PlanCache`` lookup), ``serve::pack`` (padding,
+stacking and the copy to the device), ``serve::apply`` (the guarded
+batched apply and the copy back) and ``serve::unpack`` (the reports);
+``serve::queue``, tagged with the request's ``rid``, runs from its
+wave's start to the start of its dispatch's ``serve::pack``.
+
 Departures from the reference, both so that a broken kernel cannot hide
 behind a correct answer:
 
@@ -54,6 +63,7 @@ from typing import Any, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.direct import direct_potential
 from ..device import resolve_device
 from ..errors import (BackendDowngradeWarning, DeadlineExceededError,
@@ -225,32 +235,34 @@ class ServePlane:
         as ``(phi, report)`` or ``(None, report-with-typed-error)``. A
         fault outside the typed taxonomy (a kernel that fails to build
         or launch) is not a request-level fault and raises."""
-        now = self.clock()
-        items = [_Item(next(self._rid_counter), r, now) for r in requests]
-        self.counters["requests"] += len(items)
+        with trace.span("serve::wave") as wave:
+            now = self.clock()
+            items = [_Item(next(self._rid_counter), r, now)
+                     for r in requests]
+            self.counters["requests"] += len(items)
 
-        admitted: dict[int, list[_Item]] = {}
-        for it in items:
-            self._admit(it, admitted)
+            admitted: dict[int, list[_Item]] = {}
+            with trace.span("serve::admit"):
+                for it in items:
+                    self._admit(it, admitted)
 
-        for bucket in sorted(admitted):
-            queue = admitted[bucket]
-            while queue:
-                chunk = []
-                while queue and len(chunk) < self.max_batch:
-                    it = queue.pop(0)
-                    if self._deadline_expired(it, "dispatch"):
-                        continue
-                    chunk.append(it)
-                if chunk:
-                    self._dispatch(bucket, chunk)
+            for bucket in sorted(admitted):
+                queue = admitted[bucket]
+                while queue:
+                    chunk = []
+                    while queue and len(chunk) < self.max_batch:
+                        it = queue.pop(0)
+                        if self._deadline_expired(it, "dispatch"):
+                            continue
+                        chunk.append(it)
+                    if chunk:
+                        self._dispatch(bucket, chunk, wave)
 
-        for it in items:
-            if it.result is None:     # pragma: no cover - defensive
-                it.result = self._reject(
-                    it, FmmError("request fell through the dispatch plan"),
-                    "lost")
-        return [it.result for it in items]
+            for it in items:
+                if it.result is None:     # pragma: no cover - defensive
+                    it.result = self._reject(it, FmmError(
+                        "request fell through the dispatch plan"), "lost")
+            return [it.result for it in items]
 
     def stats(self) -> dict:
         """Cumulative serving counters + per-bucket cache traffic +
@@ -335,29 +347,36 @@ class ServePlane:
 
     # -- dispatch -----------------------------------------------------------
 
-    def _dispatch(self, bucket: int, chunk: list[_Item]) -> None:
+    def _dispatch(self, bucket: int, chunk: list[_Item],
+                  wave: trace.span) -> None:
         width = _batch_width(len(chunk), self.max_batch)
-        guarded, hit = self.cache.get(bucket, width)
+        with trace.span("serve::cache"):
+            guarded, hit = self.cache.get(bucket, width)
         cfg = guarded.cfg
-        rows_z, rows_q = [], []
-        for it in chunk:
-            zp, qp = pad_problem(it.z, it.q, bucket,
-                                 dtype=cfg.complex_dtype)
-            rows_z.append(zp.astype(cfg.complex_dtype))
-            rows_q.append(qp.astype(cfg.complex_dtype))
-        while len(rows_z) < width:       # filler rows: discard on unpack
-            rows_z.append(rows_z[0])
-            rows_q.append(rows_q[0])
-        zb = torch.as_tensor(np.stack(rows_z), device=self.device)
-        qb = torch.as_tensor(np.stack(rows_q), device=self.device)
+        with trace.span("serve::pack") as pack:
+            for it in chunk:
+                trace.record("serve::queue", wave.start, pack.start,
+                             tag=it.rid, parent=wave.id)
+            rows_z, rows_q = [], []
+            for it in chunk:
+                zp, qp = pad_problem(it.z, it.q, bucket,
+                                     dtype=cfg.complex_dtype)
+                rows_z.append(zp.astype(cfg.complex_dtype))
+                rows_q.append(qp.astype(cfg.complex_dtype))
+            while len(rows_z) < width:   # filler rows: discard on unpack
+                rows_z.append(rows_z[0])
+                rows_q.append(rows_q[0])
+            zb = torch.as_tensor(np.stack(rows_z), device=self.device)
+            qb = torch.as_tensor(np.stack(rows_q), device=self.device)
 
         t0 = self.clock()
         step = self._dispatches
         self._dispatches += 1
         self.counters["dispatches"] += 1
         try:
-            phi_b, greport = guarded.apply_batched_guarded(zb, qb)
-            phi_b = phi_b.cpu().numpy()
+            with trace.span("serve::apply"):
+                phi_b, greport = guarded.apply_batched_guarded(zb, qb)
+                phi_b = phi_b.cpu().numpy()
         except FmmError as e:
             dt = self.clock() - t0
             self.monitor.record(step, dt)
@@ -377,13 +396,14 @@ class ServePlane:
             status = "recovered"
         else:
             status = "degraded"
-        for row, it in enumerate(chunk):
-            self._finish(it, unpad(phi_b[row], it.n), status,
-                         path=it.path + list(rungs),
-                         bucket=bucket, batch=width,
-                         backend=greport.final_backend,
-                         cache="hit" if hit else "miss",
-                         retries=greport.retries, slow=slow)
+        with trace.span("serve::unpack"):
+            for row, it in enumerate(chunk):
+                self._finish(it, unpad(phi_b[row], it.n), status,
+                             path=it.path + list(rungs),
+                             bucket=bucket, batch=width,
+                             backend=greport.final_backend,
+                             cache="hit" if hit else "miss",
+                             retries=greport.retries, slow=slow)
 
     # -- overload shedding / degradation ------------------------------------
 

@@ -41,6 +41,7 @@ from typing import Callable, ContextManager, Optional
 
 import torch
 
+from .. import trace
 from ..core.config import FmmConfig
 from ..core.direct import direct_potential
 from ..core.fmm import HEALTH_CLASSES, FmmPlan
@@ -201,7 +202,8 @@ class GuardedSolver:
                 phi, health = solver.apply_batched_with_health(z, q)
             else:
                 phi, health = solver.apply_with_health(z, q)
-            h = host_health(health)
+            with trace.span("guard::read"):
+                h = host_health(health)
         ok = not (h["overflow"] or h["nonfinite_input"]
                   or h["nonfinite_output"])
         attempts.append(GuardAttempt(
@@ -335,7 +337,8 @@ class GuardedSolver:
         solver, and return its healthy plan. Returns ``(plan,
         GuardReport)``; feed the plan to ``apply_plan``. The cost over
         plain ``refresh`` is one host read of the margins and overflow
-        per attempt."""
+        per attempt (the span ``guard::read``, as each rung's read of the
+        health plane)."""
         attempts: list[GuardAttempt] = []
         solver = self.solver
         for _ in range(self.max_cap_doublings + 1):
@@ -343,8 +346,9 @@ class GuardedSolver:
                     else f"caps*{solver.cfg.strong_cap}/{solver.cfg.weak_cap}")
             with self.rung_hook(rung):
                 plan = solver.refresh(z, q)
-                host = torch.cat([plan.conn.margins.reshape(-1),
-                                  plan.conn.overflow.reshape(-1)]).tolist()
+                with trace.span("guard::read"):
+                    host = torch.cat([plan.conn.margins.reshape(-1),
+                                      plan.conn.overflow.reshape(-1)]).tolist()
             m = dict(zip(HEALTH_CLASSES, host[:len(HEALTH_CLASSES)]))
             overflow = host[-1]
             ok = overflow == 0

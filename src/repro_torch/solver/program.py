@@ -48,8 +48,18 @@ Counting, all of it measured where a kernel wrapper runs:
 (``kernels.launch_counts()``), ``Program.recorded`` those recorded into
 the graph at its capture (``kernels.build.recorded_counts()``; empty on
 the CPU), ``Program.calls`` the calls and ``Program.replays`` the graph
-replays. A replay makes no host launch; what a replay runs on the card
-is read from a profiler trace (``scripts/profile_torch_apply.py``).
+replays. A replay makes no host launch.
+
+Tracing (``repro_torch.trace``): an eager run is the span
+``program::eager`` and a capture ``program::capture``, each tagged with
+the entry point's name; the counters
+``program.eager``, ``program.capture`` and ``program.replay`` count them
+across every program of the process, released ones included. A capture
+keeps the pipeline's phase marks with an end mark after it, and each
+replay records a timing event before the graph's launch, so
+``repro_torch.trace.snapshot()["phases"][entry]`` holds the device time
+of each phase of every replay and the launch gap before it (the
+benchmark's ``*_ms`` per-layer metrics read them).
 """
 from __future__ import annotations
 
@@ -60,6 +70,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .. import trace
 from ..errors import ShapeError
 from ..kernels.build import launch_counts, recorded_counts
 
@@ -175,6 +186,7 @@ class Program:
         self._owner = weakref.ref(owner)
         self._signature = _signature(args)
         self._graph = None
+        self._marks: Optional[trace.Marks] = None
 
     @property
     def entry(self) -> str:
@@ -193,11 +205,15 @@ class Program:
             out = self._replay(args)
         elif self.calls == 0 or self.key[-1].type != "cuda":
             before = launch_counts()
-            out = self._fn(*args)
+            trace.count("program.eager")
+            with trace.span("program::eager", tag=self.entry):
+                out = self._fn(*args)
             if self.calls == 0:
                 self.launches = _diff(launch_counts(), before)
         else:
-            self._capture(args)
+            trace.count("program.capture")
+            with trace.span("program::capture", tag=self.entry):
+                self._capture(args)
             out = self._replay(args)
         self.calls += 1
         return out
@@ -217,15 +233,17 @@ class Program:
         collecting = gc.isenabled()
         gc.disable()
         try:
-            with torch.cuda.graph(graph, pool=pool, stream=stream):
+            with torch.cuda.graph(graph, pool=pool, stream=stream), \
+                    trace.marking() as marking:
                 reserved = torch.cuda.memory_reserved(stream.device)
                 static_out = self._fn(*static_in)
+                marks = marking.close(self.entry)
                 grown = torch.cuda.memory_reserved(stream.device) - reserved
         finally:
             if collecting:
                 gc.enable()
         self.recorded = _diff(recorded_counts(), before)
-        self._graph = graph
+        self._graph, self._marks = graph, marks
         self._static_in, self._static_out = static_in, static_out
         owner.charge(grown)
 
@@ -238,12 +256,14 @@ class Program:
             for dst, src in zip(_leaves(self._static_in), _leaves(args)):
                 if dst is not src:
                     dst.copy_(src)
+            self._marks.before_replay(stream)
             self._graph.replay()
             out = _map(torch.clone, self._static_out)
         caller.wait_stream(stream)
         for t in _leaves(out):
             t.record_stream(caller)
         self.replays += 1
+        trace.count("program.replay")
         owner.touch()
         return out
 
@@ -307,7 +327,11 @@ class ProgramSet:
 
     def release(self) -> None:
         """Drop every program: graphs, static buffers and the pool (it is
-        freed when the last graph made in it goes)."""
+        freed when the last graph made in it goes). The phase marks of
+        each program's last replay are read first."""
+        for program in self._programs.values():
+            if program._marks is not None:
+                program._marks.read()
         self._programs.clear()
         _POOLED.pop(id(self), None)
         self.pool = self.stream = self.device = None

@@ -50,8 +50,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from .. import trace
 from ..core import fmm as _fmm
 from ..core.config import FmmConfig
 from ..core.fmm import (HEALTH_CLASSES, FmmPlan, Health, fmm_build,
@@ -283,7 +283,7 @@ class FmmSolver:
 
         def evaluate(plan: FmmPlan) -> torch.Tensor:
             phi = fmm_evaluate(plan, cfg, **impls)
-            with record_function("fmm::unsort"):
+            with trace.phase("fmm::unsort"):
                 return unsort(phi, plan.tree.perm)
 
         if entry == "refresh":
@@ -296,7 +296,7 @@ class FmmSolver:
             plan = build(z, q)
             phi = evaluate(plan)
             if with_health:
-                with record_function("fmm::health"):
+                with trace.phase("fmm::health"):
                     return phi, health_of(plan, z, q, phi)
             return phi
 

@@ -9,8 +9,9 @@ serving plane (a failing launch leaving ``serve``, the shed walk's
 warnings, warm-up, no layout rebuilt on a warm wave), and the compiled
 programs (each entry point's first call and replay bitwise its eager
 pipeline, fresh outputs, memory back on release, the memory budget, a
-capture error raised), the degenerate layouts against the CPU run, a
-checkpoint of CUDA tensors restored bitwise, the prefetcher's device,
+capture error raised, the device phase marks a replay reads), the
+degenerate layouts against the CPU run, a checkpoint of CUDA tensors
+restored bitwise, the prefetcher's device,
 the vortex example's re-plans through captured programs on the card, and
 the multi-device legs on one NCCL rank (the compressed gradient and its
 bytes on the wire, an elastic restore resumed bitwise).
@@ -28,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch import trace
 from repro_torch.core import fmm as F
 from repro_torch.core.config import FmmConfig
 from repro_torch.data import particles
@@ -852,6 +854,43 @@ def test_each_entry_point_replays_its_eager_pipeline_bitwise(cuda, dtype,
                    zip(smoke.leaves(got), smoke.leaves(ref))), entry
         assert (prog.calls, prog.replays) == (3, 2)
     assert solver._compiled_program_count() == 5
+
+
+def test_replay_phase_marks_read_positive_device_times(cuda):
+    """A captured ``apply`` at 2^14 carries a device mark at each phase:
+    every replay reads each phase's device time and the launch gap as
+    positive, together at most the replay's span timed by events around
+    the call, with no replay left unread; every call bitwise the eager
+    first one, and the counters count one eager call, one capture and
+    three replays."""
+    cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype="f64")
+    z, q = particles("uniform", cfg.n, 0, device=cuda)
+    solver = FmmSolver(cfg, "cuda")
+    trace.reset()
+    ref = solver.apply(z, q)
+    spans = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        phi = solver.apply(z, q)
+        end.record()
+        torch.cuda.synchronize()
+        spans.append(start.elapsed_time(end))
+        assert torch.equal(phi, ref)
+    snap = trace.snapshot()
+    assert snap["counters"] == {"program.eager": 1, "program.capture": 1,
+                                "program.replay": 3}
+    readings = snap["phases"]["apply"]
+    assert len(readings) == 3
+    for reading, span in zip(readings, spans):
+        assert set(reading) == {"launch_gap", "tree", "connectivity",
+                                "upward", "downward", "evaluation",
+                                "unsort"}
+        assert all(v > 0 for v in reading.values()), reading
+        assert sum(reading.values()) <= span, (reading, span)
+    solver._release_executables()
+    trace.reset()
 
 
 def test_a_returned_result_is_not_overwritten_by_the_next_call(cuda):
