@@ -14,7 +14,9 @@ Runs top to bottom and exits nonzero on the first failure:
 3. kernel phase: on the operands of the N = 2^20, p = 17 plans (paper
    Fig. 5.8 scale) of uniform, normal and layer particles (caps raised
    until no list overflows), in f32 and f64, holds each kernel against
-   its plain torch version on the same inputs (classify bit-identical;
+   its plain torch version on the same inputs (classify: the kernel
+   path's connectivity, one launch a level, bit-identical to the plain
+   path's;
    the others per element within F64_TOL in f64 and F32_KERNEL_TOL in
    f32; the direct N-body sum on N_SAMPLE of the particles as targets
    against all 2^20 sources, where the kernel splits the sources to
@@ -61,7 +63,8 @@ Runs top to bottom and exits nonzero on the first failure:
    path's uniform config, in f32 and f64: five steps of
    ``refresh(z_k, q)`` then ``apply_plan(plan)`` on particles moved by
    1e-4 N(0, 1) a step (clamped to the unit square), each step's phi
-   bitwise ``apply(z_k, q)``'s; ``refresh`` launches classify once,
+   bitwise ``apply(z_k, q)``'s; ``refresh`` launches classify once a
+   level,
    ``apply_plan`` M2L, P2L and the fused evaluation once each (eager,
    captured, then replayed);
    ``trace_counts`` 1 / 1 on a fresh solver; ``stats`` without overflow
@@ -71,8 +74,9 @@ Runs top to bottom and exits nonzero on the first failure:
    per-phase backend with its launches;
 7. tune: ``FmmSolver.tune`` on the main path's problems from the default
    caps, in f32 and f64: its trials, tuned caps and host time, one
-   classify launch a probe; the tuned solver's ``apply_checked``
-   launches the four main-path kernels once each and meets the accuracy
+   classify launch a level and probe; the tuned solver's
+   ``apply_checked`` launches the four main-path kernels (classify once
+   a level, the others once) and meets the accuracy
    bound at the sampled targets; its apply ms beside the main path's;
 8. guard: (a) ``FmmSolver.build(cfg).guarded().apply_guarded`` from the
    default caps on normal and layer particles, in f32 and f64: the walk
@@ -100,9 +104,10 @@ Runs top to bottom and exits nonzero on the first failure:
    clean request "ok" or "recovered" on "cuda" within the f32 accuracy
    bound of the f64 direct sum at every target, each poison rejected
    with the reference's typed error, no ``BackendDowngradeWarning``,
-   the four main-path kernels once a guard attempt a dispatch (classify
-   and P2L none at nlevels 0); on the warm waves a dispatch hits the
-   cache exactly when its shape class was dispatched before, a hit
+   the four main-path kernels a guard attempt a dispatch (classify once
+   a level, the others once; classify and P2L none at nlevels 0); on
+   the warm waves a dispatch hits the cache exactly when its shape
+   class was dispatched before, a hit
    re-prepares nothing, and a bucket seen before builds no leaf layout;
    requests/s, p50/p99 latency, padded-row share, cache counters and
    median dispatch ms, program calls by kind (eager / capture / replay),
@@ -165,7 +170,8 @@ Runs top to bottom and exits nonzero on the first failure:
    a failing rank fails the phase;
 14. per-phase path: the "cuda" backend without its fused hooks,
    registered as "cuda-phases", on the same problems: M2L once per
-   level, L2P and P2P once, classify and P2L once, the fused evaluation
+   level, L2P and P2P once, classify once a level, P2L once, the fused
+   evaluation
    never; the same accuracy bounds; in f64 phi within 1e-10 of the main
    path's and the reference backend's;
 15. batched: ``apply_batched`` with B = 4 at N = 2^20 in f32 on both
@@ -317,17 +323,19 @@ KERNELS = {
 }
 
 
-def want_counts(**kw) -> dict:
-    """Launches per kernel of one main-path apply, with ``kw`` changed."""
-    want = {"classify": 1, "m2l": 1, "p2l": 1, "eval_fused": 1, "p2p": 0,
-            "l2p": 0, "nbody": 0}
+def want_counts(cfg, **kw) -> dict:
+    """Launches per kernel of one main-path apply at ``cfg`` (classify
+    once a tree level), with ``kw`` changed."""
+    want = {"classify": cfg.nlevels, "m2l": 1, "p2l": 1, "eval_fused": 1,
+            "p2p": 0, "l2p": 0, "nbody": 0}
     want.update(kw)
     return want
 
 
 def phase_counts(cfg) -> dict:
     """Launches per kernel of one per-phase apply: M2L once per level."""
-    return want_counts(m2l=max(cfg.nlevels, 1), eval_fused=0, p2p=1, l2p=1)
+    return want_counts(cfg, m2l=max(cfg.nlevels, 1), eval_fused=0, p2p=1,
+                       l2p=1)
 
 
 def check(cond, msg: str) -> None:
@@ -635,10 +643,16 @@ def time_cuda(fn, reps: int, torch, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def staged_launch(name: str, call):
-    """Run ``call`` once, recording the one launch it makes of kernel
-    ``name``; returns a function that repeats exactly that launch on the
-    same staged operands and outputs (no wrapper work around it)."""
+def launches_of(name: str, cfg) -> int:
+    """Launches one call of kernel ``name``'s wrapper makes at ``cfg``."""
+    return cfg.nlevels if name == "classify" else 1
+
+
+def staged_launch(name: str, call, launches: int = 1):
+    """Run ``call`` once, recording the ``launches`` launches it makes of
+    kernel ``name`` (classify: one a tree level); returns a function that
+    repeats exactly those launches, in order, on the same staged operands
+    and outputs (no wrapper work around them)."""
     from repro_torch.kernels.build import LIBRARIES
 
     lib = LIBRARIES[name]
@@ -653,9 +667,9 @@ def staged_launch(name: str, call):
         call()
     finally:
         del lib.launch
-    check(len(seen) == 1, f"{name}: {len(seen)} launches in one call")
-    symbol, args = seen[0]
-    return lambda: launch(symbol, *args)
+    check(len(seen) == launches,
+          f"{name}: {len(seen)} launches in one call (want {launches})")
+    return lambda: [launch(symbol, *args) for symbol, args in seen]
 
 
 def time_kernel(fn, reps: int, torch, warmup: int = 2) -> float:
@@ -693,9 +707,18 @@ def work_of(name: str, args, kwargs, dt: str) -> tuple[float, float, float]:
     the flops that is a dense matrix product (M2L's product with H)."""
     sz = 8 if dt == "f64" else 4
     if name == "classify":
-        cand, valid, centers, radii = args
-        pairs = int(valid.sum())
-        nbytes = cand.numel() * 4 + 3 * radii.numel() * sz + 5 * cand.numel() * 4
+        # one launch a level: the parent level's strong lists and the
+        # level's centres and radii read; the strong and weak lists, the
+        # counts (5 a row) and at the leaf the p2p, p2l and m2p lists
+        # written; each candidate (4 a parent entry) tested
+        from repro_torch.core.topology import build_connectivity
+        tree, c = args
+        S, W = c.strong_cap, c.weak_cap
+        rows = [r.numel() for r in tree.radii[1:]]
+        pairs = 4 * sum(int((st >= 0).sum())
+                        for st in build_connectivity(tree, c).strong[:-1])
+        nbytes = (sum(r * S + 3 * r * sz + 4 * r * (S + W + 5)
+                      for r in rows) + 12 * rows[-1] * S)
         return 16.0 * pairs, float(nbytes), 0.0
     if name == "m2l":
         weak, ar = args[0], args[1]
@@ -767,17 +790,13 @@ def capture(cfg, z, q, torch):
     from repro_torch.core.topology import MARGIN_CLASSES
     from repro_torch.kernels import (eval_fused_apply, eval_operands,
                                      fused_levels, l2p_operands,
-                                     leaf_classify_cuda, m2l_fused_apply,
+                                     level_classify_cuda, m2l_fused_apply,
                                      m2l_operands, p2l_apply, p2l_operands,
                                      p2p_operands)
     from repro_torch.kernels.m2l.ops import m2l_planes
     from repro_torch.solver.guard import grow_caps
 
     cap = {}
-
-    def classify_rec(cand, valid, centers, radii, c):
-        cap["classify"] = ((cand, valid, centers, radii), {})
-        return leaf_classify_cuda(cand, valid, centers, radii, c)
 
     def m2l_rec(mult, weak, centers, c, rho):
         cap["m2l"] = (m2l_operands(mult, weak, centers, c, rho)[0], {})
@@ -797,12 +816,14 @@ def capture(cfg, z, q, torch):
         return eval_fused_apply(local, mult_leaf, tree, conn, c)
 
     while True:
-        plan = fmm_build(z[None], q[None], cfg, leaf_classify_impl=classify_rec)
+        plan = fmm_build(z[None], q[None], cfg,
+                         leaf_classify_impl=level_classify_cuda)
         if int(plan.conn.overflow.max()) == 0:
             break
         margins = dict(zip(MARGIN_CLASSES,
                            plan.conn.margins.min(dim=0).values.tolist()))
         cfg = grow_caps(cfg, margins)
+    cap["classify"] = ((plan.tree, cfg), {})
     fmm_evaluate(plan, cfg, m2l_fused_impl=m2l_rec, p2l_impl=p2l_rec,
                  eval_fused_impl=eval_rec)
     # the direct N-body sum: N_SAMPLE of the particles (in rank order) as
@@ -815,7 +836,8 @@ def capture(cfg, z, q, torch):
     cap["nbody"] = ((zr[pick], zi[pick], zr, zi, qr, qi), {})
     torch.cuda.synchronize()
     conn = plan.conn
-    occupied = {"pairs": int(cap["classify"][0][1].sum()),
+    occupied = {"pairs": 4 * sum(int((s >= 0).sum())
+                                 for s in conn.strong[:-1]),
                 "weak": sum(int((w >= 0).sum()) for w in conn.weak),
                 "p2p": int((conn.p2p >= 0).sum()),
                 "p2l": int((conn.p2l >= 0).sum()),
@@ -829,16 +851,20 @@ def capture(cfg, z, q, torch):
 def kernel_impls(cfg) -> dict:
     """Per kernel, (its wrapper, its plain version), each called as
     ``f(args, kwargs)`` on the operands that ``capture`` records."""
+    from repro_torch.core.topology import build_connectivity
     from repro_torch.kernels import (eval_fused_cuda, eval_fused_plain,
-                                     l2p_cuda, l2p_plain, leaf_classify_cuda,
-                                     leaf_classify_plain, m2l_cuda,
-                                     m2l_plain, nbody_cuda, nbody_plain,
-                                     p2l_cuda, p2l_plain, p2p_cuda,
-                                     p2p_plain)
+                                     l2p_cuda, l2p_plain, level_classify_cuda,
+                                     m2l_cuda, m2l_plain, nbody_cuda,
+                                     nbody_plain, p2l_cuda, p2l_plain,
+                                     p2p_cuda, p2p_plain)
 
     return {
-        "classify": (lambda a, k: leaf_classify_cuda(*a, cfg),
-                     lambda a, k: leaf_classify_plain(*a, cfg)),
+        # a whole connectivity build (operands: the tree and its config):
+        # the kernel path against the plain path, every list, the margins
+        # and the overflow
+        "classify": (lambda a, k: leaves(build_connectivity(
+                         *a, leaf_classify_impl=level_classify_cuda)),
+                     lambda a, k: leaves(build_connectivity(*a))),
         "m2l": (lambda a, k: m2l_cuda(*a), lambda a, k: m2l_plain(*a)),
         "p2l": (lambda a, k: p2l_cuda(*a, **k),
                 lambda a, k: p2l_plain(*a, **k)),
@@ -944,7 +970,8 @@ def kernel_phase(dt: str, torch) -> list[dict]:
             row["max_abs_err"] = max(row["max_abs_err"], abs_err)
             if dist != "uniform":
                 continue
-            ms = time_kernel(staged_launch(name, lambda: kern(args, kwargs)),
+            ms = time_kernel(staged_launch(name, lambda: kern(args, kwargs),
+                                           launches_of(name, cfg)),
                              KERNEL_REPS, torch)
             plain_ms = time_cuda(lambda: plain(args, kwargs), PLAIN_REPS,
                                  torch, warmup=1)
@@ -1045,8 +1072,8 @@ def main_path(dt: str, torch) -> tuple[dict, dict]:
             return solver
 
         phi, calls, cfg, solver, first_s = grown_apply(build, cfg, z, q, tag)
-        check(ran(calls, want_counts()), f"{tag}: launches per apply "
-              f"{calls_note(calls)} (want {want_counts()})")
+        check(ran(calls, want_counts(cfg)), f"{tag}: launches per apply "
+              f"{calls_note(calls)} (want {want_counts(cfg)})")
         for k in KERNELS:
             totals[k] += calls.host[k]
         secs = median_apply_s(solver, z, q, phi, tag, torch)
@@ -1119,7 +1146,7 @@ def entry_calls(solver, z, q, zb, qb, plan) -> dict:
     cfg = solver.cfg
     zc, qc = (a.to(cfg.torch_complex)[None] for a in (z, q))
     zbc, qbc = (a.to(cfg.torch_complex) for a in (zb, qb))
-    full = (want_counts() if solver.backend.name == "cuda"
+    full = (want_counts(cfg) if solver.backend.name == "cuda"
             else phase_counts(cfg))
     zero = {k: 0 for k in KERNELS}
     return {
@@ -1134,7 +1161,7 @@ def entry_calls(solver, z, q, zb, qb, plan) -> dict:
             lambda: eager_entry(solver, "apply_batched", zbc, qbc), full),
         "refresh": (lambda: solver.refresh(z, q),
                     lambda: eager_entry(solver, "refresh", zc, qc),
-                    dict(zero, classify=1)),
+                    dict(zero, classify=cfg.nlevels)),
         "apply_plan": (lambda: solver.apply_plan(plan),
                        lambda: eager_entry(solver, "apply_plan", plan)[0],
                        dict(full, classify=0)),
@@ -1380,7 +1407,7 @@ def seam_phase(dt: str, main: dict, torch) -> None:
     m = main["uniform"]
     cfg, z, q = m["cfg"], m["z"], m["q"]
     zero = {k: 0 for k in KERNELS}
-    want_refresh = dict(zero, classify=1)
+    want_refresh = dict(zero, classify=cfg.nlevels)
     want_plan = dict(zero, m2l=1, p2l=1, eval_fused=1)
     solver = FmmSolver(cfg)                  # fresh: its own trace_counts
     times = {"refresh": [], "apply_plan": [], "apply": []}
@@ -1400,7 +1427,7 @@ def seam_phase(dt: str, main: dict, torch) -> None:
         phi, c_plan = timed("apply_plan", lambda: solver.apply_plan(plan),
                             step, want_plan)
         ref, _ = timed("apply", lambda: solver.apply(zk, q), step,
-                       want_counts())
+                       want_counts(cfg))
         check(torch.equal(phi, ref), f"{tag}: refresh + apply_plan is not "
               "bitwise apply")
         stats = solver.stats(zk, q)
@@ -1451,7 +1478,7 @@ def host_s(fn, torch):
 def tune_phase(dt: str, main: dict, torch) -> None:
     """``FmmSolver.tune`` on each distribution at the main path's size,
     from the default caps: its trials, tuned caps and host time, one
-    classify launch per probe; then ``apply_checked`` on the tuned
+    classify launch a level and probe; then ``apply_checked`` on the tuned
     solver: the main path's launches, the accuracy bound against the
     main path's direct sums, its apply time beside the main path's."""
     from repro_torch.configs import fmm_config
@@ -1469,13 +1496,14 @@ def tune_phase(dt: str, main: dict, torch) -> None:
         tuned, secs = host_s(lambda: solver.tune(z, q), torch)
         counts, res = launch_counts(), tuned.tune_result
         probes = len(res.trials)
-        check(counts == dict(zero, classify=probes),
-              f"{tag}: launches {counts} for {probes} probes (want one "
-              "classify a probe)")
+        levels = solver.cfg.nlevels
+        check(counts == dict(zero, classify=probes * levels),
+              f"{tag}: launches {counts} for {probes} probes (want "
+              f"classify {levels} a probe)")
         check(res.stats["overflow"] == 0 and res.trials[-1][2] == 0,
               f"{tag}: tuned caps overflow: {res.trials}")
         phi, c, _ = counted(lambda: tuned.apply_checked(z, q), torch)
-        check(ran(c, want_counts()),
+        check(ran(c, want_counts(tuned.cfg)),
               f"{tag}: tuned apply_checked launches {calls_note(c)}")
         err = rel_error_inf(phi[m["sample"]].to(torch.complex128),
                             m["d_seen"])
@@ -1487,7 +1515,7 @@ def tune_phase(dt: str, main: dict, torch) -> None:
               f"fields {tuned.cfg.tile_boxes}/{tuned.cfg.stage_width}); tune "
               f"{1e3 * secs:.1f} ms host for {probes} probes, "
               f"{1e3 * secs / probes:.1f} ms a probe, classify launches a "
-              f"probe 1; tuned apply_checked launches {calls_note(c)}, "
+              f"probe {levels}; tuned apply_checked launches {calls_note(c)}, "
               f"rel_err_inf "
               f"{err:.3e}; tuned apply {1e3 * apply_s:.1f} ms (main path "
               f"{1e3 * m['secs']:.1f} ms at caps {m['cfg'].strong_cap}/"
@@ -1530,8 +1558,9 @@ def guard_phase(dt: str, main: dict, torch) -> None:
               and rungs[0] == "primary"
               and all(r.startswith("caps*") for r in rungs[1:]),
               f"{tag}: {rep.summary()}")
-        check(ran(c, want_counts(), len(rungs)),
-              f"{tag}: launches {calls_note(c)} (want {want_counts()} a rung)")
+        check(ran(c, want_counts(cfg0), len(rungs)),
+              f"{tag}: launches {calls_note(c)} (want {want_counts(cfg0)} "
+              "a rung)")
         err = rel_error_inf(phi[m["sample"]].to(torch.complex128),
                             m["d_seen"])
         check(err < ACC_BOUND[dt], f"{tag}: accuracy {err:.3e}")
@@ -1580,7 +1609,7 @@ def guard_phase(dt: str, main: dict, torch) -> None:
     check(rep.ok and rep.retries >= 1 and g.cfg != cfg0
           and rep.attempts[-1].rung == f"caps*{g.cfg.strong_cap}/"
           f"{g.cfg.weak_cap}", f"{tag}: {rep.summary()}")
-    check(ran(c, {k: int(k == "classify") for k in KERNELS},
+    check(ran(c, {k: cfg0.nlevels * (k == "classify") for k in KERNELS},
               len(rep.attempts)), f"{tag}: launches {calls_note(c)}")
     phi = g.apply_plan(plan)
     check(torch.equal(phi, g.solver.apply(z, q)),
@@ -1651,14 +1680,15 @@ def fault_walk(torch) -> None:
     drop = min(margins[c] for c in ("strong", "p2p", "p2l", "m2p")) + 4
     S, W = cfg.strong_cap, cfg.weak_cap
     zero = {k: 0 for k in KERNELS}
-    fmm = want_counts()
+    fmm = want_counts(cfg)
     want = {
         "healthy": (["primary"], "cuda", [fmm]),
         "truncate->caps*2": (["primary", f"caps*{2 * S}/{W}"], "cuda",
                              [fmm, fmm]),
         "nan-kernel->degrade": (["primary", "degrade:cuda+ref-eval"],
                                 "cuda+ref-eval",
-                                [fmm, dict(zero, classify=1, m2l=1)]),
+                                [fmm, dict(zero, classify=cfg.nlevels,
+                                           m2l=1)]),
         "forced-overflow->direct": (
             ["primary", f"caps*{2 * S}/{min(2 * W, 8 * S)}", "direct"],
             "direct", [fmm, fmm, zero]),
@@ -1761,10 +1791,9 @@ def dispatch_log(torch):
 
 def serve_counts(cfg) -> dict:
     """Launches per kernel of one guard attempt of a serving dispatch: the
-    main path's, without classify and P2L on a one-box tree (nlevels 0:
-    no leaf level to classify, no P2L pass)."""
-    leafy = int(cfg.nlevels > 0)
-    return want_counts(classify=leafy, p2l=leafy)
+    main path's, without P2L on a one-box tree (nlevels 0: no level to
+    classify, no P2L pass)."""
+    return want_counts(cfg, p2l=int(cfg.nlevels > 0))
 
 
 def serve_wave(plane, wave, tag: str, torch, seen=None, full_acc=True):
@@ -2034,7 +2063,7 @@ def degenerate_phase(torch) -> None:
         kinds = [p.kind for _, c, _ in runs for p in c.programs]
         check(kinds == ["eager", "capture", "replay"],
               f"{tag}: program calls {kinds}")
-        check(ran(runs[0][1], want_counts()),
+        check(ran(runs[0][1], want_counts(cfg)),
               f"{tag}: eager launches {calls_note(runs[0][1])}")
         (phi, health), _, _ = runs[0]
         (phi_r, health_r), _, _ = runs[2]
@@ -2794,7 +2823,7 @@ def batched_phase(cfg, torch, backend: str = "cuda") -> dict:
                   flush=True)
             continue
         break
-    want = want_counts() if backend == "cuda" else phase_counts(cfg)
+    want = want_counts(cfg) if backend == "cuda" else phase_counts(cfg)
     check(ran(c, want),
           f"batched[{backend}]: launches {calls_note(c)} (want {want} for "
           "B = 4)")

@@ -123,7 +123,8 @@ def main() -> int:
             if only and name not in only:
                 continue
             a, k = cap[name]
-            call = smoke.staged_launch(name, lambda: kern(a, k))
+            call = smoke.staged_launch(name, lambda: kern(a, k),
+                                       smoke.launches_of(name, cfg))
             ms[name] = smoke.time_kernel(call, args.reps, torch)
             digest[name] = output_digest(name, kern, a, k, torch)
         if not only or "m2l_levels" in only:

@@ -433,8 +433,9 @@ def p2p_sweep(phi, tree: Tree, conn: Connectivity,
 def fmm_build(z: torch.Tensor, q: torch.Tensor, cfg: FmmConfig,
               leaf_classify_impl=None, connect=None) -> FmmPlan:
     """Topological phase of B problems ((B, N) complex z, q): sort
-    (single-sort tree build) + connect. ``leaf_classify_impl`` replaces
-    the leaf-level classification (the CUDA topology kernel);
+    (single-sort tree build) + connect. ``leaf_classify_impl`` is the
+    per-level topology hook (the CUDA topology kernel, one launch a
+    level; see ``build_connectivity``);
     ``connect`` the connectivity builder (default: this module's
     ``build_connectivity`` binding, read at the call)."""
     connect = connect or build_connectivity

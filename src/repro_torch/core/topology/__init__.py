@@ -3,9 +3,11 @@
   tree.py          single-sort adaptive tree build (2 full sorts total,
                    then O(N) rank-partitions per split) and the level
                    geometry pass
-  connectivity.py  theta-criterion interaction lists, one batched
-                   compaction sort, the leaf classification as a hook
-                   (plain torch | CUDA kernel)
+  connectivity.py  theta-criterion interaction lists: the plain path
+                   (one batched compaction sort) or, through the
+                   backend's per-level hook, each level classified
+                   and compacted in one call (on the card, one CUDA
+                   kernel launch a level, no sort)
   rounding.py      the exactly rounded hypot / fma / sqrt the lists'
                    bit parity with the JAX reference rests on
 """
@@ -13,12 +15,14 @@ from .tree import (LeafLayout, Tree, build_tree, build_tree_lexsort,
                    layout_builds, leaf_ids, leaf_layout,
                    leaf_particle_index, leaf_particle_index_loop)
 from .connectivity import (MARGIN_CLASSES, Connectivity, build_connectivity,
-                           connectivity_stats, leaf_classify_reference)
+                           classify_level_reference, connectivity_stats,
+                           leaf_classify_reference)
 
 __all__ = [
     "Tree", "build_tree", "build_tree_lexsort", "leaf_ids",
     "leaf_particle_index", "leaf_particle_index_loop", "LeafLayout",
     "leaf_layout", "layout_builds",
     "Connectivity", "MARGIN_CLASSES", "build_connectivity",
-    "connectivity_stats", "leaf_classify_reference",
+    "classify_level_reference", "connectivity_stats",
+    "leaf_classify_reference",
 ]

@@ -16,18 +16,31 @@ particles shift directly into the smaller box's local expansion) / M2P
 (the smaller box's multipole is evaluated at the larger box's points)
 instead of P2P.
 
-The strong-set recursion is sequential in l; everything after it is
-not. Every level's weak list plus the five leaf classes stack into ONE
-flattened ``(B, sum 4**l, 4S)`` array compacted by a single sort. The
-leaf level (3/4 of all boxes) classifies through the ``leaf_classify_impl``
-hook: ``leaf_classify_reference`` below, or the CUDA kernel of
-``repro_torch.kernels.topology``.
+Two paths build the same lists:
+
+- The plain path (no hook): the CPU's and the "reference" backend's, and
+  what the kernel is held to. The strong-set recursion is sequential in
+  l; every level's weak list plus the five leaf classes stack into ONE
+  flattened ``(B, sum 4**l, 4S)`` array compacted by a single sort.
+- The hook path (``leaf_classify_impl``, the backend's topology hook):
+  one call a level, l = 1..L in order, returning the level's lists
+  already compacted and each row's count of every class
+  (``classify_level_reference`` below is its contract in plain torch;
+  ``repro_torch.kernels.topology`` holds the CUDA kernel, one launch a
+  level on the card). No sort: a box's candidates are the children
+  ``4p + k`` of its parent's strong entries ``p`` in list order; the
+  root's list is ``[0]`` and each compacted list keeps candidate order,
+  so every list ascends and a stable compaction of a row equals the
+  sorted row, clipped at the cap to the same entries. One reduction of
+  the counts gives the margins.
 
 The predicates use ``rounding.hypot_xla``/``rounding.fma_rn`` so the lists
 are bit-identical to ``repro.core.topology.build_connectivity`` (the
 reference contracts ``big + theta*small`` into one fused multiply-add).
 All tensors carry a leading problem axis B; ``margins`` is (B, 5) and
-``overflow`` (B,).
+``overflow`` (B,). The counters ``connectivity.kernel_levels`` and
+``connectivity.plain_levels`` add the levels each build (eager or
+captured) classified on each path.
 """
 from __future__ import annotations
 
@@ -35,6 +48,7 @@ from typing import NamedTuple
 
 import torch
 
+from ... import trace
 from ..config import FmmConfig
 from .rounding import fma_rn, hypot_xla
 from .tree import Tree
@@ -133,6 +147,69 @@ def leaf_classify_reference(cand, valid, centers, radii, cfg: FmmConfig):
             keyed(cand, p2l_m), keyed(cand, m2p_m))
 
 
+def _candidates(parent_strong, nb: int):
+    """(cand, valid) (B, nb, 4S) of a level: the children ``4p + k`` of
+    each box's parent's strong entries ``p``, in list order."""
+    B, _, S = parent_strong.shape
+    dev = parent_strong.device
+    parent = torch.arange(nb, device=dev) // 4
+    ps = parent_strong[:, parent]                              # (B, nb, S)
+    pvalid = ps >= 0
+    four = torch.arange(4, dtype=torch.int32, device=dev)
+    cand = (torch.where(pvalid, ps, torch.zeros_like(ps))[..., None] * 4
+            + four).view(B, nb, 4 * S)
+    valid = pvalid[..., None].expand(B, nb, S, 4).reshape(B, nb, 4 * S)
+    return cand, valid
+
+
+def _stream_compact(cand, mask, cap: int):
+    """Row-compact masked entries to the front in candidate order, pad
+    with -1, clip to cap: the kernel's compaction, with no sort."""
+    pos = mask.cumsum(dim=-1) - 1
+    slot = torch.where(mask & (pos < cap), pos, torch.full_like(pos, cap))
+    out = torch.full(mask.shape[:-1] + (cap + 1,), -1, dtype=torch.int32,
+                     device=mask.device)
+    out.scatter_(-1, slot, cand)                  # slot cap: the dropped
+    return out[..., :cap].contiguous()
+
+
+def count_levels(kernel: int = 0, plain: int = 0) -> None:
+    """Add a build's levels classified by the kernel and in plain torch
+    to the counters ``connectivity.kernel_levels`` / ``.plain_levels``
+    (both present after any build)."""
+    trace.count("connectivity.kernel_levels", kernel)
+    trace.count("connectivity.plain_levels", plain)
+
+
+def classify_level_reference(parent_strong, centers, radii, cfg: FmmConfig,
+                             leaf: bool):
+    """One level of the topology hook in plain torch (the contract the
+    CUDA kernel of ``repro_torch.kernels.topology`` keeps).
+
+    ``parent_strong``: the parent level's compacted (B, 4**(l-1), S)
+    strong lists; ``centers``/``radii``: level l's (B, 4**l) planes.
+    Returns (lists, counts): the compacted (strong, weak) lists of level
+    l, or at the leaf (strong, weak, p2p, p2l, m2p), each (B, 4**l, cap)
+    int32 padded with -1, and the (B, 4**l, 5) int32 count of each class
+    a row before clipping (``MARGIN_CLASSES`` order; the leaf classes 0
+    above the leaf).
+    """
+    count_levels(plain=1)
+    cand, valid = _candidates(parent_strong, radii.shape[1])
+    cbx, cby = centers.real, centers.imag
+    ccx, ccy, rc = gather_geometry(cand, valid, centers, radii)
+    weak_m, strong_m = theta_masks(cbx, cby, radii, ccx, ccy, rc, valid,
+                                   cfg.theta)
+    masks = [strong_m, weak_m]
+    if leaf:
+        masks += swapped_masks(cbx, cby, radii, ccx, ccy, rc, strong_m, cfg)
+    caps = (cfg.strong_cap, cfg.weak_cap) + 3 * (cfg.strong_cap,)
+    lists = tuple(_stream_compact(cand, m, cap) for m, cap in zip(masks, caps))
+    counts = [m.sum(dim=-1) for m in masks]
+    counts += [torch.zeros_like(counts[0])] * (len(MARGIN_CLASSES) - len(masks))
+    return lists, torch.stack(counts, dim=-1).to(torch.int32)
+
+
 def _batched_compact(groups):
     """ONE sort for every (keys, cap) group: stack the same-width keyed
     arrays along the box axis, sort once along the slot axis, slice each
@@ -162,21 +239,25 @@ def build_connectivity(tree: Tree, cfg: FmmConfig,
                        leaf_classify_impl=None) -> Connectivity:
     """Interaction lists for every level of B problems.
 
-    ``leaf_classify_impl(cand, valid, centers, radii, cfg)`` optionally
-    replaces the leaf-level strong/weak/swapped-theta classification (the
-    CUDA topology kernel); ``None`` runs the plain reference.
+    ``leaf_classify_impl(parent_strong, centers, radii, cfg, leaf)``, the
+    backend's topology hook (module docstring), classifies and compacts
+    each level l = 1..L (on the card, the CUDA kernel of
+    ``repro_torch.kernels.topology``); ``None`` runs the plain path.
     """
     S, W = cfg.strong_cap, cfg.weak_cap
     L = cfg.nlevels
     B = tree.z.shape[0]
     dev = tree.z.device
-    classify = (leaf_classify_impl if leaf_classify_impl is not None
-                else leaf_classify_reference)
 
     root = torch.full((B, 1, S), -1, dtype=torch.int32, device=dev)
     root[..., 0] = 0                                   # root: self
     strong = [root]
     weak = [torch.full((B, 1, W), -1, dtype=torch.int32, device=dev)]
+
+    if L > 0 and leaf_classify_impl is not None:
+        return _hook_levels(leaf_classify_impl, tree, cfg, strong, weak)
+    count_levels(plain=L)
+
     root_strong_margin = torch.full((B,), S - 1, dtype=torch.int32,
                                     device=dev)
     root_weak_margin = torch.full((B,), W, dtype=torch.int32, device=dev)
@@ -202,20 +283,12 @@ def build_connectivity(tree: Tree, cfg: FmmConfig,
     weak_keys = []
     strong_margins = [root_strong_margin]
     leaf_keys = None
-    four = torch.arange(4, dtype=torch.int32, device=dev)
     for l in range(1, L + 1):
-        nb = 4**l
-        parent = torch.arange(nb, device=dev) // 4
-        parent_strong = strong[l - 1][:, parent]               # (B, nb, S)
-        pvalid = parent_strong >= 0
-        cand = (torch.where(pvalid, parent_strong,
-                            torch.zeros_like(parent_strong))[..., None] * 4
-                + four).view(B, nb, 4 * S)
-        valid = pvalid[..., None].expand(B, nb, S, 4).reshape(B, nb, 4 * S)
+        cand, valid = _candidates(strong[l - 1], 4**l)
 
         if l == L:
-            leaf_keys = classify(cand, valid, tree.centers[l],
-                                 tree.radii[l], cfg)
+            leaf_keys = leaf_classify_reference(cand, valid, tree.centers[l],
+                                                tree.radii[l], cfg)
             weak_keys.append(leaf_keys[1])
             continue
 
@@ -244,6 +317,30 @@ def build_connectivity(tree: Tree, cfg: FmmConfig,
         torch.stack([root_weak_margin] + weak_margins, dim=-1).amin(dim=-1),
         tail[1], tail[2], tail[3],
     ], dim=-1)
+    return Connectivity(strong=tuple(strong), weak=tuple(weak),
+                        p2p=p2p, p2l=p2l, m2p=m2p,
+                        overflow=_overflow_of(margins), margins=margins)
+
+
+def _hook_levels(classify, tree: Tree, cfg: FmmConfig, strong: list,
+                 weak: list) -> Connectivity:
+    """Levels 1..L through the per-level hook, each fed its parent's
+    compacted strong lists; the margins are the caps less the fullest
+    row of each class over every level (the root's strong list holds
+    itself, its weak list nothing)."""
+    counts = []
+    for l in range(1, cfg.nlevels + 1):
+        lists, cnt = classify(strong[-1], tree.centers[l], tree.radii[l],
+                              cfg, l == cfg.nlevels)
+        strong.append(lists[0])
+        weak.append(lists[1])
+        counts.append(cnt)
+    p2p, p2l, m2p = lists[2:]
+    most = torch.cat(counts, dim=1).amax(dim=1)               # (B, 5)
+    most[:, 0].clamp_(min=1)
+    caps = torch.full_like(most, cfg.strong_cap)
+    caps[:, 1] = cfg.weak_cap
+    margins = caps - most
     return Connectivity(strong=tuple(strong), weak=tuple(weak),
                         p2p=p2p, p2l=p2l, m2p=m2p,
                         overflow=_overflow_of(margins), margins=margins)

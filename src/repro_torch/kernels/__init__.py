@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels of the FMM (``csrc/*.cu``, built for
 ``sm_90a`` at first use) and their plain torch versions:
 
-  topology/  leaf-level strong/weak/swapped-theta classification
+  topology/  strong/weak/swapped-theta classification and compaction of
+             one topology level a launch
   m2l/       multipole-to-local translation, level-fused (main path) or
              one level per launch (per-phase path)
   eval/      fused evaluation phase (L2P + P2P + M2P) and the downward P2L
@@ -23,7 +24,7 @@ from .m2l import (fused_levels, m2l_cuda, m2l_fused_apply, m2l_level_apply,
                   m2l_operands, m2l_plain)
 from .nbody import nbody_cuda, nbody_direct, nbody_plain, nbody_plan
 from .p2p import p2p_apply, p2p_cuda, p2p_operands, p2p_plain
-from .topology import leaf_classify_cuda, leaf_classify_plain
+from .topology import level_classify_cuda, level_classify_plain
 
 __all__ = [
     "common", "build_all", "launch_counts", "reset_launch_counts",
@@ -34,5 +35,5 @@ __all__ = [
     "m2l_operands", "m2l_plain",
     "nbody_cuda", "nbody_direct", "nbody_plain", "nbody_plan",
     "p2p_apply", "p2p_cuda", "p2p_operands", "p2p_plain",
-    "leaf_classify_cuda", "leaf_classify_plain",
+    "level_classify_cuda", "level_classify_plain",
 ]

@@ -1,3 +1,3 @@
-from .classify import leaf_classify_cuda, leaf_classify_plain
+from .classify import level_classify_cuda, level_classify_plain
 
-__all__ = ["leaf_classify_cuda", "leaf_classify_plain"]
+__all__ = ["level_classify_cuda", "level_classify_plain"]

@@ -2,8 +2,8 @@
 
 The twin of ``repro.serve.plane``. ``ServePlane.serve`` accepts a stream
 of heterogeneous ``(z, q)`` requests and routes them onto the batched
-main path (on "cuda": classify, level-fused M2L, P2L and the fused
-evaluation, one launch each a dispatch and guard attempt) through three
+main path (on "cuda": classify once a level, level-fused M2L, P2L and
+the fused evaluation once, a dispatch and guard attempt) through three
 layers:
 
   admission     eager, per-request: shape/dtype screening, non-finite

@@ -21,7 +21,7 @@ of times on a sample of the workload:
 Each probe builds through the topology hooks it is given
 (``topology_impls``, a ``Backend.topology_impls()`` dict): ``FmmSolver.tune``
 passes its backend's, so on the card the probes launch the classify
-kernel, as ``apply`` does. The lists are bit-identical to the plain
+kernel (once a level), as ``apply`` does. The lists are bit-identical to the plain
 path's, so the hooks cannot change a tuned cap.
 
 The tile part (``eval_fused_vmem_bytes``, ``tile_candidates``,

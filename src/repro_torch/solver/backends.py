@@ -7,7 +7,8 @@ registry maps names to backends:
   "reference"  plain torch sweeps of ``repro_torch.core.fmm`` (every hook
                None -> the core path runs its own sweep)
   "cuda"       the hand-written CUDA kernels of ``repro_torch.kernels``,
-               one per hook: leaf classify, level-fused M2L, P2L and the
+               one per hook: classify (one launch a tree level),
+               level-fused M2L, P2L and the
                fused evaluation phase (the main path), and the per-level
                M2L, L2P and P2P. The fused hooks take precedence, so the
                main path runs the first four; a backend derived with
@@ -63,7 +64,7 @@ class Backend:
     m2l_fused: PhaseImpl = None
     p2l: PhaseImpl = None
     eval_fused: PhaseImpl = None
-    leaf_classify: PhaseImpl = None
+    leaf_classify: PhaseImpl = None    # the topology hook, every level
     batched_dispatch: str = "vmap"
 
     def __post_init__(self):
@@ -113,14 +114,14 @@ def get_backend(name: str, device=None) -> Backend:
 
 
 def _make_cuda() -> Backend:
-    from ..kernels import (eval_fused_apply, l2p_apply, leaf_classify_cuda,
+    from ..kernels import (eval_fused_apply, l2p_apply, level_classify_cuda,
                            m2l_fused_apply, m2l_level_apply, p2l_apply,
                            p2p_apply)
 
     return Backend(name="cuda", p2p=p2p_apply, m2l=m2l_level_apply,
                    l2p=l2p_apply, m2l_fused=m2l_fused_apply, p2l=p2l_apply,
                    eval_fused=eval_fused_apply,
-                   leaf_classify=leaf_classify_cuda,
+                   leaf_classify=level_classify_cuda,
                    batched_dispatch="native")
 
 

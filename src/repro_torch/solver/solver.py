@@ -31,7 +31,8 @@ on a machine without a CUDA card the default raises instead of falling
 back to the CPU. With the "cuda" backend each of the four kernels of the
 main path runs exactly once per ``apply`` — and once per
 ``apply_batched``, whatever B: every kernel grid carries the problems as
-an explicit axis. ``refresh`` launches the classify kernel, and
+an explicit axis — but classify, which launches once a tree level.
+``refresh`` launches the classify kernel (once a level), and
 ``apply_plan`` the M2L, P2L and fused evaluation kernels.
 
 ``apply_with_health``/``apply_checked`` return or check the health plane
@@ -392,7 +393,7 @@ class FmmSolver:
     def refresh(self, z, q) -> FmmPlan:
         """Rebuild tree + connectivity for one problem's (moved)
         particles: the B = 1 plan of ``fmm_build`` with this backend's
-        topology hook (on "cuda": one classify launch). Feed it to
+        topology hook (on "cuda": one classify launch a level). Feed it to
         ``apply_plan``; ``plan.conn.overflow`` (one scalar) monitors cap
         drift as the particles move."""
         self._validate(z, q, "refresh")
@@ -438,7 +439,7 @@ class FmmSolver:
         """Fit ``strong_cap``/``weak_cap`` (and the reference's tile
         fields) to a workload sample on this solver's device, probing
         through its backend's topology hook (on "cuda": the classify
-        kernel, one launch a probe and row).
+        kernel, one launch a level, probe and row).
 
         ``z_sample`` may be (N,) or (B, N) — a batch tunes the shared cap
         budget to its worst row. With ``tiles=True`` the tile fields are

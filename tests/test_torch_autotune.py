@@ -242,7 +242,8 @@ def test_tuned_solver_computes_the_same_answer():
 
 def test_tune_probes_through_the_backends_topology_hook():
     """Every probe (one per trial and row) builds through the solver's
-    topology hook — on the card, one classify launch each."""
+    topology hook, once a tree level — on the card, one classify launch
+    each."""
     calls = []
     base = get_backend("cuda")
 
@@ -255,8 +256,9 @@ def test_tune_probes_through_the_backends_topology_hook():
     z, q = _sample("single")
     _, tiny = _cfgs("tiny")
     tuned = FmmSolver.build(tiny, "cuda-counted", CPU).tune(z, q)
-    assert len(calls) == len(tuned.tune_result.trials) >= 3
+    assert len(calls) == tiny.nlevels * len(tuned.tune_result.trials)
+    assert len(tuned.tune_result.trials) >= 3
     zb, qb = _batch(2)
     calls.clear()
     res = FmmSolver.build(TCFG, "cuda-counted", CPU).tune(zb, qb).tune_result
-    assert len(calls) == 2 * len(res.trials)
+    assert len(calls) == 2 * TCFG.nlevels * len(res.trials)

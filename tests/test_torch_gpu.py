@@ -36,7 +36,7 @@ from repro_torch.data import particles
 from repro_torch.kernels import (eval_fused_cuda, eval_fused_plain,
                                  eval_operands, l2p_cuda, l2p_operands,
                                  l2p_plain, launch_counts,
-                                 leaf_classify_cuda, leaf_classify_plain,
+                                 level_classify_cuda,
                                  m2l_cuda, m2l_operands, m2l_plain,
                                  nbody_cuda, nbody_direct, nbody_plain,
                                  nbody_plan,
@@ -84,10 +84,11 @@ def _runs(fn):
                                   for k, v in recorded_counts().items()}
 
 
-def _main_counts(**kw):
-    """Expected launches per kernel: the main path's by default."""
-    want = {"classify": 1, "m2l": 1, "p2l": 1, "eval_fused": 1, "l2p": 0,
-            "p2p": 0, "nbody": 0}
+def _main_counts(nlevels, **kw):
+    """Expected launches per kernel: the main path's by default on a tree
+    of ``nlevels`` levels (classify once a level)."""
+    want = {"classify": nlevels, "m2l": 1, "p2l": 1, "eval_fused": 1,
+            "l2p": 0, "p2p": 0, "nbody": 0}
     want.update(kw)
     return want
 
@@ -98,16 +99,13 @@ def _main_counts(**kw):
 def test_kernels_match_plain_versions(cuda, dtype, kernel):
     cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype=dtype, kernel=kernel)
     z, q = particles("normal", cfg.n, 0, device=cuda)
-    cap = {}
+    plan = F.fmm_build(z[None], q[None], cfg,
+                       leaf_classify_impl=level_classify_cuda)
+    plain = F.build_connectivity(plan.tree, cfg)
 
-    def rec(cand, valid, centers, radii, c):
-        cap["classify"] = (cand, valid, centers, radii)
-        return leaf_classify_cuda(cand, valid, centers, radii, c)
-
-    plan = F.fmm_build(z[None], q[None], cfg, leaf_classify_impl=rec)
-    a = cap["classify"]
-    for x, y in zip(leaf_classify_cuda(*a, cfg), leaf_classify_plain(*a, cfg)):
-        assert torch.equal(x, y)
+    def lists(c):
+        return [*c.strong, *c.weak, *c[2:]]
+    assert all(map(torch.equal, lists(plan.conn), lists(plain)))
     tol = 1e-10 if dtype == "f64" else 1e-4
     mult = F.upward(plan.tree, cfg)
     rho = F.effective_radii(plan.tree, cfg)
@@ -146,17 +144,17 @@ def test_apply_launches_each_kernel_once_and_matches_reference(cuda):
     solver = FmmSolver.build(cfg)
     assert solver.dispatched["apply"] == "cuda"
     phi, host, _ = _runs(lambda: solver.apply_checked(z, q))
-    assert host == _main_counts()
+    assert host == _main_counts(cfg.nlevels)
     ref = FmmSolver.build(cfg, backend="reference").apply(z, q)
     assert _rel(phi, ref) <= 1e-10
     zb, qb = torch.stack([z, z.flip(0)]), torch.stack([q, q.flip(0)])
     phib, host, _ = _runs(lambda: solver.apply_batched(zb, qb))
-    assert host == _main_counts()
+    assert host == _main_counts(cfg.nlevels)
     assert torch.equal(phib[0], phi)
 
 
 def test_per_phase_path_launches_and_matches_main_path(cuda):
-    """The "cuda" backend without its fused hooks: classify 1, M2L once
+    """The "cuda" backend without its fused hooks: classify and M2L once
     per level, P2L 1, L2P 1, P2P 1, the fused evaluation 0 — per apply
     and per apply_batched; phi as the main path's."""
     cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype="f64")
@@ -166,7 +164,8 @@ def test_per_phase_path_launches_and_matches_main_path(cuda):
         eval_fused=None))
     FmmSolver.cache_clear()          # first calls: launched from the host
     solver = FmmSolver.build(cfg, backend="cuda-phases")
-    want = _main_counts(m2l=cfg.nlevels, eval_fused=0, l2p=1, p2p=1)
+    want = _main_counts(cfg.nlevels, m2l=cfg.nlevels, eval_fused=0, l2p=1,
+                        p2p=1)
     phi, host, _ = _runs(lambda: solver.apply_checked(z, q))
     assert host == want
     main = FmmSolver.build(cfg).apply(z, q)
@@ -182,7 +181,7 @@ def test_nbody_direct_launches_once_and_excludes_by_position(cuda):
     z[7] = z[3]
     reset_launch_counts()
     phi = nbody_direct(z, z, q)
-    assert launch_counts() == _main_counts(classify=0, m2l=0, p2l=0,
+    assert launch_counts() == _main_counts(0, m2l=0, p2l=0,
                                            eval_fused=0, nbody=1)
     assert torch.isfinite(phi).all()
     from repro_torch.core.direct import direct_potential
@@ -437,9 +436,9 @@ def test_m2l_rows_spread_over_a_wide_row_are_bitwise_the_packed(cuda, dtype):
 
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
 def test_refresh_apply_plan_launches_and_is_bitwise_apply(cuda, dtype):
-    """Three steps on moved particles: refresh launches classify once,
-    apply_plan M2L, P2L and the fused evaluation once each (from the
-    host at a program's first call, recorded into its graph at the
+    """Three steps on moved particles: refresh launches classify once a
+    level, apply_plan M2L, P2L and the fused evaluation once each (from
+    the host at a program's first call, recorded into its graph at the
     second, replayed after; ``stats`` calls ``refresh`` too, so the
     refresh program captures in the first step); phi bitwise apply's;
     prepared once per half; no overflow."""
@@ -447,10 +446,10 @@ def test_refresh_apply_plan_launches_and_is_bitwise_apply(cuda, dtype):
     cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype=dtype)
     z, q = particles("uniform", cfg.n, 11, device=cuda)
     solver = FmmSolver(cfg)
-    none = _main_counts(classify=0, m2l=0, p2l=0, eval_fused=0)
+    none = _main_counts(0, m2l=0, p2l=0, eval_fused=0)
     for step in range(3):
         zk = smoke.perturbed(z, step)
-        want = dict(none, classify=1)
+        want = dict(none, classify=cfg.nlevels)
         plan, host, rec = _runs(lambda: solver.refresh(zk, q))
         assert (host, rec) == [(want, none), (none, none),
                                (none, none)][step]
@@ -646,8 +645,8 @@ def test_kernel_launch_error_propagates_out_of_apply_guarded(cuda,
 
 @pytest.mark.parametrize("dist", ["uniform", "normal"])
 def test_tune_and_guard_on_the_card(cuda, dist):
-    """``tune`` probes with one classify launch each; the tuned solver
-    and the guard's escalated one launch the four kernels once an apply
+    """``tune`` probes with one classify launch a level each; the tuned
+    solver and the guard's escalated one launch the four kernels once an apply
     and match the reference backend's phi within 1e-10 (f64)."""
     cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype="f64")
     z, q = particles(dist, cfg.n, 4, device=cuda)
@@ -655,12 +654,12 @@ def test_tune_and_guard_on_the_card(cuda, dist):
     reset_launch_counts()
     tuned = solver.tune(z, q)
     probes = len(tuned.tune_result.trials)
-    assert launch_counts() == _main_counts(classify=probes, m2l=0, p2l=0,
-                                           eval_fused=0)
+    assert launch_counts() == _main_counts(probes * cfg.nlevels, m2l=0,
+                                           p2l=0, eval_fused=0)
     # its first call (from the host) or, where the other distribution
     # tuned to the same caps, its second (recorded into the capture)
     phi, host, rec = _runs(lambda: tuned.apply_checked(z, q))
-    assert {k: host[k] + rec[k] for k in host} == _main_counts()
+    assert {k: host[k] + rec[k] for k in host} == _main_counts(cfg.nlevels)
     ref = FmmSolver.build(tuned.cfg, backend="reference").apply(z, q)
     assert _rel(phi, ref) <= 1e-10
     (gphi, rep), host, rec = _runs(
@@ -670,7 +669,7 @@ def test_tune_and_guard_on_the_card(cuda, dist):
     # each rung's solver runs its health program for the first time
     # (eagerly) or the second (a capture): one launch a kernel a rung
     assert {k: host[k] + rec[k] for k in host} == \
-        {k: v * n for k, v in _main_counts().items()}
+        {k: v * n for k, v in _main_counts(cfg.nlevels).items()}
     gref = FmmSolver.build(dataclasses.replace(
         cfg, strong_cap=rep.attempts[-1].strong_cap,
         weak_cap=rep.attempts[-1].weak_cap), backend="reference").apply(z, q)
@@ -772,7 +771,7 @@ def test_plan_cache_warm_on_the_card(cuda):
     cache = PlanCache(default_cfg_factory)
     reset_launch_counts()
     guarded = cache.warm(2048, 2)
-    assert launch_counts() == _main_counts()
+    assert launch_counts() == _main_counts(guarded.cfg.nlevels)
     assert guarded.trace_counts == {"build": 1, "evaluate": 1}
     assert guarded.device.type == "cuda"
 
@@ -834,7 +833,7 @@ def test_each_entry_point_replays_its_eager_pipeline_bitwise(cuda, dtype,
     solver = FmmSolver(cfg, backend)
     plan = smoke.eager_entry(solver, "refresh", *(
         a.to(cfg.torch_complex)[None] for a in (z, q)))
-    none = _main_counts(classify=0, m2l=0, p2l=0, eval_fused=0)
+    none = _main_counts(0, m2l=0, p2l=0, eval_fused=0)
     for entry, (call, eager, want) in smoke.entry_calls(
             solver, z, q, zb, qb, plan).items():
         ref = eager()
@@ -862,7 +861,8 @@ def test_replay_phase_marks_read_positive_device_times(cuda):
     positive, together at most the replay's span timed by events around
     the call, with no replay left unread; every call bitwise the eager
     first one, and the counters count one eager call, one capture and
-    three replays."""
+    three replays, and the levels the eager call and the capture
+    classified with the kernel."""
     cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype="f64")
     z, q = particles("uniform", cfg.n, 0, device=cuda)
     solver = FmmSolver(cfg, "cuda")
@@ -879,8 +879,11 @@ def test_replay_phase_marks_read_positive_device_times(cuda):
         spans.append(start.elapsed_time(end))
         assert torch.equal(phi, ref)
     snap = trace.snapshot()
+    # the eager call and the capture each built through the kernel
     assert snap["counters"] == {"program.eager": 1, "program.capture": 1,
-                                "program.replay": 3}
+                                "program.replay": 3,
+                                "connectivity.kernel_levels": 2 * cfg.nlevels,
+                                "connectivity.plain_levels": 0}
     readings = snap["phases"]["apply"]
     assert len(readings) == 3
     for reading, span in zip(readings, spans):
@@ -1035,7 +1038,7 @@ def test_degenerate_layouts_on_the_card_match_the_cpu_run(cuda, layout):
     ref, h_ref = FmmSolver(cfg, "cuda", "cpu").apply_with_health(z, q)
     solver = FmmSolver(cfg, "cuda", cuda)
     (phi, health), host, _ = _runs(lambda: solver.apply_with_health(z, q))
-    assert host == _main_counts()
+    assert host == _main_counts(cfg.nlevels)
     solver.apply_with_health(z, q)
     phi_r, health_r = solver.apply_with_health(z, q)
     prog, = solver.programs().values()

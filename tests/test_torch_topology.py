@@ -1,7 +1,9 @@
 """PyTorch port, topology: the single-sort tree and the theta
-connectivity are bit-identical to the JAX reference; the leaf classify
-wrapper (plain version on the CPU) is bit-identical to the reference's
-Pallas kernel in interpret mode."""
+connectivity are bit-identical to the JAX reference, on the plain path
+and through the "cuda" backend's per-level classify hook (its plain
+version on the CPU); that hook's leaf level is bit-identical to the
+reference's Pallas kernel in interpret mode; a build counts its levels
+by path."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -10,7 +12,8 @@ import torch
 from repro.kernels.topology import leaf_classify_pallas
 from repro_torch.core.topology import build_connectivity, build_tree
 from repro_torch.core.topology import connectivity as conn_mod
-from repro_torch.kernels import leaf_classify_cuda, leaf_classify_plain
+from repro_torch import trace
+from repro_torch.kernels import level_classify_cuda, level_classify_plain
 
 from _torch_parity import configs, inputs, jax_plan, t
 
@@ -160,9 +163,11 @@ def test_theta_predicates_bit_identical_at_the_boundary(dt):
     ("normal", "f32", dict(use_p2l_m2p=False)),
     ("layer", "f32", dict(theta=0.3))])
 def test_leaf_classify_matches_pallas_interpret(dist, dt, kw):
-    """The port's classify wrapper on CPU tensors (its plain version) is
-    bit-identical to the reference's Pallas kernel (interpret mode) on
-    the same candidates."""
+    """The port's classify wrapper on CPU tensors (its plain version) at
+    the leaf level is bit-identical to the reference's Pallas kernel
+    (interpret mode) on the same candidates: each class's list is the
+    Pallas kernel's keyed row sorted and clipped at its cap, and each
+    row's count its kept entries."""
     n, levels = 1024, 2
     jcfg, tcfg = configs(n=n, nlevels=levels, p=5, dtype=dt, strong_cap=16,
                          **kw)
@@ -170,22 +175,71 @@ def test_leaf_classify_matches_pallas_interpret(dist, dt, kw):
     jp = jax_plan(jcfg, z, q)
     captured = {}
 
-    def hook(cand, valid, centers, radii, cfg):
-        captured["args"] = (cand, valid, centers, radii)
-        return leaf_classify_cuda(cand, valid, centers, radii, cfg)
+    def hook(parent, centers, radii, cfg, leaf):
+        if leaf:
+            captured["args"] = (parent, centers, radii)
+        return level_classify_cuda(parent, centers, radii, cfg, leaf)
 
     from repro_torch.core.fmm import plan_from_numpy
     tree = plan_from_numpy(jp.tree, jp.conn, tcfg, device="cpu").tree
     build_connectivity(tree, tcfg, leaf_classify_impl=hook)
-    cand, valid, centers, radii = captured["args"]
-    ours = leaf_classify_cuda(cand, valid, centers, radii, tcfg)
-    plain = leaf_classify_plain(cand, valid, centers, radii, tcfg)
+    parent, centers, radii = captured["args"]
+    ours, counts = level_classify_cuda(parent, centers, radii, tcfg, True)
+    plain, plain_counts = level_classify_plain(parent, centers, radii, tcfg,
+                                               True)
+    assert torch.equal(counts, plain_counts)
+    cand, valid = conn_mod._candidates(parent, radii.shape[1])
     theirs = leaf_classify_pallas(jnp.asarray(cand[0].numpy()),
                                   jnp.asarray(valid[0].numpy()),
                                   jnp.asarray(centers[0].numpy()),
                                   jnp.asarray(radii[0].numpy()), jcfg,
                                   interpret=True)
-    for a, b, c in zip(ours, plain, theirs):
+    caps = (tcfg.strong_cap, tcfg.weak_cap) + 3 * (tcfg.strong_cap,)
+    for k, (a, b, keys, cap) in enumerate(zip(ours, plain, theirs, caps)):
         assert a.dtype == torch.int32
         assert torch.equal(a, b)
-        np.testing.assert_array_equal(a[0].numpy(), np.asarray(c))
+        keys = np.asarray(keys)
+        kept = np.sort(keys, axis=-1)[:, :cap]
+        np.testing.assert_array_equal(
+            a[0].numpy(), np.where(kept == conn_mod.INT_MAX, -1, kept))
+        np.testing.assert_array_equal(counts[0, :, k].numpy(),
+                                      (keys != conn_mod.INT_MAX).sum(-1))
+
+
+@pytest.mark.parametrize("n,levels,dist,dt,kw", CONN_CASES)
+def test_classify_hook_path_bit_identical(n, levels, dist, dt, kw):
+    """The "cuda" backend's classify hook on CPU tensors (one call a
+    level, compaction in candidate order, no sort): every list, margin
+    and overflow equal to the reference, and the build counts its levels
+    under ``connectivity.plain_levels``, none under ``.kernel_levels``."""
+    _, tcfg, jp, tree = _both(n, levels, dist, dt, **kw)
+    before = trace.snapshot()["counters"]
+    conn = build_connectivity(tree, tcfg,
+                              leaf_classify_impl=level_classify_cuda)
+    after = trace.snapshot()["counters"]
+    gained = {k: after[k] - before.get(k, 0)
+              for k in ("connectivity.kernel_levels",
+                        "connectivity.plain_levels")}
+    assert gained == {"connectivity.kernel_levels": 0,
+                      "connectivity.plain_levels": levels}
+    jc = jp.conn
+    for l in range(levels + 1):
+        assert _eq(jc.strong[l], conn.strong[l][0]), ("strong", l)
+        assert _eq(jc.weak[l], conn.weak[l][0]), ("weak", l)
+    for name in ("p2p", "p2l", "m2p", "margins", "overflow"):
+        assert _eq(getattr(jc, name), getattr(conn, name)[0]), name
+
+
+def test_a_cpu_build_counts_its_levels_as_plain():
+    """A build on the CPU (the plain path, no hook) adds its levels to
+    ``connectivity.plain_levels`` and none to ``.kernel_levels``."""
+    _, tcfg = configs(n=1024, nlevels=3, p=5, dtype="f64")
+    z, q = inputs("normal", 1024, 0)
+    tree = build_tree(t(z), t(q), tcfg)
+    before = trace.snapshot()["counters"]
+    build_connectivity(tree, tcfg)
+    after = trace.snapshot()["counters"]
+    assert {k: after[k] - before.get(k, 0)
+            for k in ("connectivity.kernel_levels",
+                      "connectivity.plain_levels")} == {
+        "connectivity.kernel_levels": 0, "connectivity.plain_levels": 3}

@@ -129,7 +129,11 @@ def test_program_counters_count_every_eager_call_on_the_cpu():
     solver.apply_plan(plan)
     solver.apply_batched(z[None].repeat(2, 1), q[None].repeat(2, 1))
     snap = trace.snapshot()
-    assert snap["counters"] == {"program.eager": 6}
+    # five builds of two levels (3 apply, refresh, apply_batched), each
+    # level classified by the hook's plain version on the CPU
+    assert snap["counters"] == {"program.eager": 6,
+                                "connectivity.kernel_levels": 0,
+                                "connectivity.plain_levels": 10}
     assert snap["phases"] == {}            # no capture, no marks
     spans = snap["spans"]
     eager = [s for s in spans if s.name == "program::eager"]
