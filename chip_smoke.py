@@ -55,6 +55,12 @@ Runs top to bottom and exits nonzero on the first failure:
    replay runs on the card read by name from a profiler trace, the pool
    bytes each capture charges, the programs held, and the memory back
    after ``_release_executables``;
+   log: at the shapes of the held-plan log matvec (layer particles, f64,
+   G = log, caps 256/1024), M2L, P2L and the fused evaluation in their
+   log branches held against their plain versions and timed with their
+   bounds as in 3, and ``apply_charges`` on a held plan run as the
+   graphs phase runs an entry point, its real part against the f64
+   direct log sum at 4096 targets and against the reference backend;
    after each group of phases the programs held, the pool bytes charged
    against the programs' memory budget, the solvers it released, and
    the memory reserved with its peak; nothing is released between
@@ -292,6 +298,15 @@ GRAPH_REPS = 5
 GRAPH_B = 4
 # Fig. 5.5 sweep of the direct baseline against the FMM
 SWEEP = [1 << k for k in range(9, 21)]
+# log: the kernel G = q log(z - x) at the shapes of the held-plan log
+# matvec (bench/configs/fmm2d-log-bie-f64.json): layer particles at N,
+# f64, caps 256/1024; its three kernels with a log branch; the operations
+# of a complex log term (log and atan2, product, sum) and those a
+# near-field pair adds over the harmonic pair's (work_of)
+LOG_CAPS = (256, 1024)
+LOG_KERNELS = ("m2l", "p2l", "eval_fused")
+LOG_TERM = 14
+LOG_PAIR = 2
 # accuracy bounds of the JAX reference's own tests
 # (tests/test_fmm_accuracy.py:29 in f64, :41 in f32)
 ACC_BOUND = {"f64": 2e-6, "f32": 5e-4}
@@ -704,7 +719,29 @@ def work_of(name: str, args, kwargs, dt: str) -> tuple[float, float, float]:
     each input read once and each output written once; flops counted on
     the list entries that are actually occupied (transcendentals and
     divisions as one operation each); the dense flops are the part of
-    the flops that is a dense matrix product (M2L's product with H)."""
+    the flops that is a dense matrix product (M2L's product with H).
+    The log kernel (G = q log(z - x)) reads and writes what the harmonic
+    one does; its operations add a complex log (a log and an atan2, 6
+    operations), a product and a sum (14 in all) to each M2L entry, each
+    P2L particle and each M2P target, and 2 to each near-field pair
+    (``bench/metrics/_work_log.py``); the rest of its work is counted as
+    the harmonic kernel's, a lower bound."""
+    flops, nbytes, dense = _work_of(name, args, kwargs, dt)
+    if name == "m2l" and args[7] == "log":
+        flops += LOG_TERM * int((args[0] >= 0).sum())
+    elif kwargs.get("kernel") == "log" and name == "p2l":
+        flops += LOG_TERM * int((args[0] >= 0).sum()) * args[4].shape[-1]
+    elif kwargs.get("kernel") == "log" and name == "eval_fused":
+        p2p, m2p, zr = args[0], args[1], args[2]
+        n = zr.shape[-1]
+        flops += LOG_PAIR * int((p2p >= 0).sum()) * n * n
+        if m2p is not None:
+            flops += LOG_TERM * int((m2p >= 0).sum()) * n
+    return flops, nbytes, dense
+
+
+def _work_of(name: str, args, kwargs, dt: str) -> tuple[float, float, float]:
+    """``work_of`` of the harmonic kernel."""
     sz = 8 if dt == "f64" else 4
     if name == "classify":
         # one launch a level: the parent level's strong lists and the
@@ -902,30 +939,53 @@ def upcast(args, kwargs, torch):
     return tuple(up(a) for a in args), {k: up(v) for k, v in kwargs.items()}
 
 
-def kernel_phase(dt: str, torch) -> list[dict]:
+def log_config(dt: str):
+    """The config of the log leg: the main path's at N in ``dt``, with
+    G = log and caps LOG_CAPS."""
+    import dataclasses
+
+    from repro_torch.configs import fmm_config
+
+    return dataclasses.replace(fmm_config(N, p=P_TERMS, dtype=dt),
+                               kernel="log", strong_cap=LOG_CAPS[0],
+                               weak_cap=LOG_CAPS[1])
+
+
+def kernel_phase(dt: str, torch, kernel: str = "harmonic") -> list[dict]:
     """Each kernel against its plain version on the operands of the
     N = 2^20 plans of the three distributions; timings and bounds at the
-    uniform plan (the default caps)."""
+    uniform plan (the default caps). With ``kernel="log"``: the kernels
+    with a log branch (LOG_KERNELS) on the layer plan of ``log_config``,
+    timed there; their rows are named ``<kernel>_log_<dt>``."""
     from repro_torch.configs import fmm_config
     from repro_torch.data import particles
 
+    log = kernel == "log"
+    dists, timed = (("layer",), "layer") if log else (DISTS, "uniform")
     entries_of = {"classify": ("pairs",), "m2l": ("weak",), "p2l": ("p2l",),
                   "eval_fused": ("p2p", "m2p"), "p2p": ("p2p",),
                   "l2p": (), "nbody": ("pairs_nbody",)}
     rows = {}
-    for dist in DISTS:
+    for dist in dists:
         z, q = particles(dist, N, SEED)
-        cfg, cap, occupied = capture(fmm_config(N, p=P_TERMS, dtype=dt), z,
-                                     q, torch)
-        print(f"plan[{dt}/{dist}]: caps strong={cfg.strong_cap} "
+        start = log_config(dt) if log else fmm_config(N, p=P_TERMS, dtype=dt)
+        cfg, cap, occupied = capture(start, z, q, torch)
+        print(f"plan[{kernel}/{dt}/{dist}]: caps strong={cfg.strong_cap} "
               f"weak={cfg.weak_cap}; occupied entries {occupied}", flush=True)
+        if log:
+            check((cfg.strong_cap, cfg.weak_cap) == LOG_CAPS,
+                  f"log plan: caps raised to {cfg.strong_cap}/"
+                  f"{cfg.weak_cap} (the matvec cell runs {LOG_CAPS})")
         for name, (kern, plain) in kernel_impls(cfg).items():
+            if log and name not in LOG_KERNELS:
+                continue
             args, kwargs = cap[name]
             first = kern(args, kwargs)
             second = kern(args, kwargs)
             ref = plain(args, kwargs)
             torch.cuda.synchronize()
-            tag = f"{name}[{dt}/{dist}]"
+            tag = (f"{name}[log/{dt}/{dist}]" if log else
+                   f"{name}[{dt}/{dist}]")
             check(all(torch.equal(a, b) for a, b in zip(first, second)),
                   f"{tag}: second launch differs from the first")
             entries = " ".join(f"{k}={occupied[k]}" for k in entries_of[name])
@@ -964,11 +1024,12 @@ def kernel_phase(dt: str, torch) -> list[dict]:
             print(f"kernel {tag}: {entries}; {note}; abs_err={abs_err:.3e}",
                   flush=True)
             row = rows.setdefault(name, {
-                "name": f"{name}_{dt}", "route": "cuda",
-                "source": KERNELS[name][0], "replaces": KERNELS[name][1],
-                "launches": 0, "max_abs_err": 0.0})
+                "name": f"{name}_log_{dt}" if log else f"{name}_{dt}",
+                "route": "cuda", "source": KERNELS[name][0],
+                "replaces": KERNELS[name][1], "launches": 0,
+                "max_abs_err": 0.0})
             row["max_abs_err"] = max(row["max_abs_err"], abs_err)
-            if dist != "uniform":
+            if dist != timed:
                 continue
             ms = time_kernel(staged_launch(name, lambda: kern(args, kwargs),
                                            launches_of(name, cfg)),
@@ -1121,13 +1182,14 @@ def eager_entry(solver, entry: str, *args):
     """What the program of ``entry`` runs, run eagerly: ``fmm_build`` /
     ``fmm_evaluate`` with the solver's backend hooks on (B, N) inputs
     (or a plan), phi unsorted to input order, the health plane beside it
-    for ``apply_with_health``."""
+    for ``apply_with_health``; ``apply_charges`` takes a plan and (B, N)
+    charges."""
     from repro_torch.core.fmm import (fmm_build, fmm_evaluate, health_of,
-                                      unsort)
+                                      unsort, with_charges)
 
     cfg, be = solver.cfg, solver.backend
-    if entry == "apply_plan":
-        plan, = args
+    if entry in ("apply_plan", "apply_charges"):
+        plan = args[0] if entry == "apply_plan" else with_charges(*args)
         return unsort(fmm_evaluate(plan, cfg, **be.phase_impls()),
                       plan.tree.perm)
     z, q = args
@@ -1142,9 +1204,11 @@ def eager_entry(solver, entry: str, *args):
 def entry_calls(solver, z, q, zb, qb, plan) -> dict:
     """Per entry point of the graphs phase: (the solver's call, the same
     work run eagerly, the launches one run makes) on one problem (z, q),
-    a batch (zb, qb) of GRAPH_B and a plan of (z, q)."""
+    a batch (zb, qb) of GRAPH_B and a plan of (z, q) (``apply_charges``
+    evaluates the charges in reverse order on it)."""
     cfg = solver.cfg
     zc, qc = (a.to(cfg.torch_complex)[None] for a in (z, q))
+    qr = q.flip(0).to(cfg.torch_complex)
     zbc, qbc = (a.to(cfg.torch_complex) for a in (zb, qb))
     full = (want_counts(cfg) if solver.backend.name == "cuda"
             else phase_counts(cfg))
@@ -1165,7 +1229,65 @@ def entry_calls(solver, z, q, zb, qb, plan) -> dict:
         "apply_plan": (lambda: solver.apply_plan(plan),
                        lambda: eager_entry(solver, "apply_plan", plan)[0],
                        dict(full, classify=0)),
+        "apply_charges": (lambda: solver.apply_charges(plan, qr),
+                          lambda: eager_entry(solver, "apply_charges", plan,
+                                              qr[None])[0],
+                          dict(full, classify=0)),
     }
+
+
+def entry_phase(tag: str, solver, call, eager, want: dict, torch) -> None:
+    """One entry point as a captured program (``call``: the solver's
+    call; ``eager``: the same pipeline run eagerly; ``want``: the launches
+    one run makes): GRAPH_REPS eager runs, the first call (eager: ``want``
+    from the host) and the second (capture and replay: ``want``
+    recorded, none from the host) with their ms and the pool bytes the
+    capture charged, GRAPH_REPS replays (none launching from the host)
+    and one more traced by the profiler (the kernels it ran on the card,
+    by name, ``want``), every call bitwise the eager pipeline's output;
+    prints the medians (host clock ending in a synchronize)."""
+    eager_s = []
+    for _ in range(GRAPH_REPS):
+        ref, secs = host_s(eager, torch)
+        eager_s.append(secs)
+
+    def same(got):
+        return len(leaves(got)) == len(leaves(ref)) and all(
+            torch.equal(a, b) for a, b in zip(leaves(got), leaves(ref)))
+
+    charged = solver._programs.bytes
+    first_ms = []
+    for kind in ("eager", "capture"):
+        got, c, secs = counted(call, torch)
+        first_ms.append(1e3 * secs)
+        check(ran(c, want) and [p.kind for p in c.programs] == [kind]
+              and same(got),
+              f"{tag}: {kind} call {calls_note(c)} (want {want}), bitwise "
+              f"eager {same(got)}")
+        del got
+    pool = solver._programs.bytes - charged
+    replay_s = []
+    for _ in range(GRAPH_REPS):
+        got, c, secs = counted(call, torch)
+        check(ran(c, want) and [p.kind for p in c.programs] == ["replay"]
+              and same(got),
+              f"{tag}: replay {calls_note(c)}, bitwise eager {same(got)}")
+        replay_s.append(secs)
+        del got
+    (got, traced), c, _ = counted(lambda: replay_kernels(call, torch), torch)
+    check(traced == want and same(got) and not any(c.host.values()),
+          f"{tag}: a traced replay ran {traced} on the card, "
+          f"{calls_note(c)} (want {want})")
+    del got, ref
+    ms = {k: 1e3 * statistics.median(v) for k, v in
+          (("replay", replay_s), ("eager", eager_s))}
+    print(f"{tag}: first call (eager) {first_ms[0]:.2f} ms, second "
+          f"(capture + replay) {first_ms[1]:.2f} ms, replay "
+          f"{ms['replay']:.2f} ms, eager pipeline {ms['eager']:.2f} ms "
+          f"(medians of {GRAPH_REPS}, host clock): "
+          f"{ms['eager'] / ms['replay']:.2f}x; every call bitwise eager; "
+          f"recorded {want}, a traced replay ran the same; pool charged "
+          f"{pool} B", flush=True)
 
 
 def graphs_phase(dt: str, main: dict, torch) -> None:
@@ -1202,56 +1324,11 @@ def graphs_phase(dt: str, main: dict, torch) -> None:
                                  for a in (z, q)))
             calls = entry_calls(solver, z, q, zb, qb, plan)
             for entry, (call, eager, want) in calls.items():
-                eager_s = []
-                for _ in range(GRAPH_REPS):
-                    ref, secs = host_s(eager, torch)
-                    eager_s.append(secs)
-
-                def same(got):
-                    return len(leaves(got)) == len(leaves(ref)) and all(
-                        torch.equal(a, b) for a, b in
-                        zip(leaves(got), leaves(ref)))
-
-                charged = solver._programs.bytes
-                first_ms = []
-                for kind in ("eager", "capture"):
-                    got, c, secs = counted(call, torch)
-                    first_ms.append(1e3 * secs)
-                    check(ran(c, want) and [p.kind for p in c.programs]
-                          == [kind] and same(got),
-                          f"{tag}/{entry}: {kind} call {calls_note(c)} (want "
-                          f"{want}), bitwise eager {same(got)}")
-                    del got
-                pool = solver._programs.bytes - charged
-                replay_s = []
-                for _ in range(GRAPH_REPS):
-                    got, c, secs = counted(call, torch)
-                    check(ran(c, want) and [p.kind for p in c.programs]
-                          == ["replay"] and same(got),
-                          f"{tag}/{entry}: replay {calls_note(c)}, bitwise "
-                          f"eager "
-                          f"{same(got)}")
-                    replay_s.append(secs)
-                    del got
-                (got, traced), c, _ = counted(
-                    lambda: replay_kernels(call, torch), torch)
-                check(traced == want and same(got)
-                      and not any(c.host.values()),
-                      f"{tag}/{entry}: a traced replay ran {traced} on the "
-                      f"card, {calls_note(c)} (want {want})")
-                del got, ref
-                ms = {k: 1e3 * statistics.median(v) for k, v in
-                      (("replay", replay_s), ("eager", eager_s))}
-                print(f"{tag}/{entry}: first call (eager) "
-                      f"{first_ms[0]:.2f} ms, second (capture + replay) "
-                      f"{first_ms[1]:.2f} ms, replay {ms['replay']:.2f} "
-                      f"ms, eager pipeline {ms['eager']:.2f} ms (medians "
-                      f"of {GRAPH_REPS}, host clock): "
-                      f"{ms['eager'] / ms['replay']:.2f}x; every call "
-                      f"bitwise eager; recorded {want}, a traced replay "
-                      f"ran the same; pool charged {pool} B", flush=True)
+                entry_phase(f"{tag}/{entry}", solver, call, eager, want,
+                            torch)
             count = solver._compiled_program_count()
-            check(count == 5, f"{tag}: {count} programs (want 5)")
+            check(count == len(calls),
+                  f"{tag}: {count} programs (want {len(calls)})")
             torch.cuda.synchronize()
             held, charged = torch.cuda.memory_reserved(), \
                 solver._programs.bytes
@@ -1266,6 +1343,59 @@ def graphs_phase(dt: str, main: dict, torch) -> None:
             check(back - r_start <= 0.01 * (held - r_start),
                   f"{tag}: release returned {held - back} of "
                   f"{held - r_start} B")
+
+
+def log_phase(torch) -> list[dict]:
+    """The log kernel (G = q log(z - x)) at the shapes of the held-plan
+    matvec (``log_config``: layer particles at N, f64, caps LOG_CAPS):
+    (a) ``kernel_phase``'s gates and times on M2L, P2L and the fused
+    evaluation in their log branches; (b) ``apply_charges`` on a held
+    plan of those particles on a fresh solver, as the graphs phase runs
+    an entry point (``entry_phase``: the main-path kernels but classify
+    once a call, every call bitwise its eager pipeline); Re phi against
+    the f64 direct log sum at N_SAMPLE targets (ACC_BOUND) and against
+    the reference backend's ``apply`` of the same charges (F64_TOL).
+    Real parts only: the imaginary part q arg(z - x) may take another
+    branch in another order of evaluation (multiples of 2 pi q, no error;
+    the kernels' own gates in (a) compare both parts, operand for
+    operand). Returns the kernel rows, with their launches in one
+    ``apply_charges``."""
+    from repro_torch.core.direct import direct_potential
+    from repro_torch.data import particles
+    from repro_torch.solver import FmmSolver
+
+    dt = "f64"
+    rows = kernel_phase(dt, torch, kernel="log")
+    cfg = log_config(dt)
+    z, q = particles("layer", N, SEED)
+    tag = f"log[{dt}/layer]"
+    solver = FmmSolver(cfg, "cuda")
+    zc, qc = (a.to(cfg.torch_complex)[None] for a in (z, q))
+    plan = eager_entry(solver, "refresh", zc, qc)
+    check(int(plan.conn.overflow.max()) == 0,
+          f"{tag}: lists overflow caps {LOG_CAPS}")
+    call, eager, want = entry_calls(solver, z, q, zc, qc,
+                                    plan)["apply_charges"]
+    entry_phase(f"{tag}/apply_charges", solver, call, eager, want, torch)
+    phi = call()
+    qr = q.flip(0)
+    sample = torch.randperm(N, generator=torch.Generator().manual_seed(
+        SEED))[:N_SAMPLE].cuda()
+    direct = direct_potential(z[sample], z, qr, kernel="log").real
+    err = rel_err(phi[sample].real, direct)
+    ref = FmmSolver.build(cfg, backend="reference").apply(z, qr)
+    d = rel_err(phi.real, ref.real)
+    print(f"{tag}: Re phi rel_err_inf vs the f64 direct log sum "
+          f"{err:.3e} (limit {ACC_BOUND[dt]:g}); vs the reference backend "
+          f"{d:.3e} (limit {F64_TOL:g})", flush=True)
+    check(err < ACC_BOUND[dt], f"{tag}: accuracy {err:.3e}")
+    check(d <= F64_TOL, f"{tag}: cuda vs reference {d:.3e} > {F64_TOL}")
+    for row in rows:
+        row["launches"] = want[row["name"].split("_log_")[0]]
+    solver._release_executables()
+    del solver, plan, phi, ref, direct, call, eager
+    torch.cuda.empty_cache()
+    return rows
 
 
 def wide_m2l_operands(W: int, dt: str, torch, seed: int = SEED,
@@ -2997,6 +3127,8 @@ def main() -> int:
     for dt in ("f32", "f64"):
         graphs_phase(dt, served[dt], torch)
     memory_line("graphs", torch)
+    rows += log_phase(torch)
+    memory_line("log", torch)
     for dt in ("f32", "f64"):
         seam_phase(dt, served[dt], torch)
     for dt in ("f32", "f64"):
@@ -3028,7 +3160,9 @@ def main() -> int:
     memory_line("direct", torch)
     for row in rows:
         base, rdt = row["name"].rsplit("_", 1)
-        if base != "nbody":
+        if base.endswith("_log"):
+            pass                    # log_phase counted its launches
+        elif base != "nbody":
             row["launches"] = paths[rdt][base]
         else:
             row.update((k, code[rdt][k])

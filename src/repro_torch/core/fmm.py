@@ -25,7 +25,8 @@ back to rank order by a gather (each rank owns one slot) — no
 run.
 
 Each phase runs inside a ``repro_torch.trace.phase`` named
-``fmm::<phase>`` (tree, connectivity, upward, downward, evaluation): a
+``fmm::<phase>`` (tree, connectivity, upward, downward, evaluation;
+charges, where new charges go onto a held plan, ``with_charges``): a
 host span on an eager call, and a device mark inside a captured graph,
 so that every replay reads the device time of each phase
 (``repro_torch.trace``).
@@ -486,6 +487,18 @@ def fmm_evaluate(plan: FmmPlan, cfg: FmmConfig, p2p_impl=None,
         if p2p_impl is None:
             return p2p_sweep(phi, tree, conn, cfg)
         return phi + p2p_impl(tree, conn, cfg)
+
+
+def with_charges(plan: FmmPlan, q: torch.Tensor) -> FmmPlan:
+    """``plan`` with the charges ``q`` ((B, N), input order) in place of
+    its own (which may be None): gathered by ``plan.tree.perm`` into rank
+    order as ``build_tree`` gathers them (phase ``fmm::charges``). The
+    tree and the lists depend on the positions alone, so ``fmm_evaluate``
+    of the result is bitwise that of a plan built from the same positions
+    and ``q``."""
+    with trace.phase("fmm::charges"):
+        sorted_q = torch.gather(q.to(plan.tree.z.dtype), -1, plan.tree.perm)
+    return FmmPlan(tree=plan.tree._replace(q=sorted_q), conn=plan.conn)
 
 
 def unsort(phi_sorted: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:

@@ -22,6 +22,15 @@ On a CUDA device
   3. every later call copies its inputs into the static buffers (device
      to device) and replays.
 
+A program may hold its leading arguments (``held``; ``apply_charges``
+holds its plan, less its charges): it binds them by identity, so that a
+call whose held arguments are the very tensors of the last bind copies
+only the rest, and one with others (of the same shapes) binds them
+anew, copying them once. Binding by identity means that writes into a
+bound plan's tensors after the bind are not seen by a replay;
+``refresh`` returns fresh tensors, so the normal path never makes such
+writes.
+
 A call that replays returns fresh tensors cloned from the static
 outputs: nothing returned aliases a graph buffer, and the next replay
 cannot overwrite it. The programs of one solver share its pool; their
@@ -54,7 +63,10 @@ Tracing (``repro_torch.trace``): an eager run is the span
 ``program::eager`` and a capture ``program::capture``, each tagged with
 the entry point's name; the counters
 ``program.eager``, ``program.capture`` and ``program.replay`` count them
-across every program of the process, released ones included. A capture
+across every program of the process, released ones included, and
+``program.plan_bind`` counts the binds of held arguments (eager, capture
+or replay); a replay's copy of newly bound arguments is the span
+``program::bind``, tagged with the entry point's name. A capture
 keeps the pipeline's phase marks with an end mark after it, and each
 replay records a timing event before the graph's launch, so
 ``repro_torch.trace.snapshot()["phases"][entry]`` holds the device time
@@ -164,6 +176,12 @@ def _signature(args) -> tuple:
     return tuple((tuple(t.shape), t.dtype) for t in _leaves(args))
 
 
+def _copy(pairs) -> None:
+    for dst, src in pairs:
+        if dst is not src:
+            dst.copy_(src)
+
+
 def _diff(after: dict, before: dict) -> dict:
     return {k: after[k] - before.get(k, 0) for k in after}
 
@@ -173,10 +191,11 @@ class Program:
     ``fn(*args)`` is the pipeline; ``owner`` is the solver's
     ``ProgramSet`` (its pool and stream on the card), held weakly so
     that no reference cycle keeps a released graph alive until a
-    garbage collection."""
+    garbage collection; ``held`` the leading arguments bound by
+    identity."""
 
     def __init__(self, key: tuple, fn: Callable, args: tuple,
-                 owner: "ProgramSet"):
+                 owner: "ProgramSet", held: int = 0):
         self.key = key
         self.launches: dict[str, int] = {}
         self.recorded: dict[str, int] = {}
@@ -187,6 +206,8 @@ class Program:
         self._signature = _signature(args)
         self._graph = None
         self._marks: Optional[trace.Marks] = None
+        self._held = len(_leaves(args[:held]))
+        self._bound: list = []          # weak references to held tensors
 
     @property
     def entry(self) -> str:
@@ -201,8 +222,9 @@ class Program:
             raise ShapeError(
                 f"{self.entry}: inputs of shapes {_signature(args)} do not "
                 f"match this program's {self._signature}")
+        bind = self._bind(args)
         if self._graph is not None:
-            out = self._replay(args)
+            out = self._replay(args, bind)
         elif self.calls == 0 or self.key[-1].type != "cuda":
             before = launch_counts()
             trace.count("program.eager")
@@ -214,9 +236,22 @@ class Program:
             trace.count("program.capture")
             with trace.span("program::capture", tag=self.entry):
                 self._capture(args)
-            out = self._replay(args)
+            out = self._replay(args, False)
         self.calls += 1
         return out
+
+    def _bind(self, args: tuple) -> bool:
+        """Whether the held arguments of this call are other tensors than
+        the last bind's: then they are bound (and counted)."""
+        if not self._held:
+            return False
+        held = _leaves(args)[:self._held]
+        if len(self._bound) == len(held) and all(
+                ref() is t for ref, t in zip(self._bound, held)):
+            return False
+        self._bound = [weakref.ref(t) for t in held]
+        trace.count("program.plan_bind")
+        return True
 
     def _capture(self, args: tuple) -> None:
         owner = self._owner()
@@ -247,15 +282,19 @@ class Program:
         self._static_in, self._static_out = static_in, static_out
         owner.charge(grown)
 
-    def _replay(self, args: tuple):
+    def _replay(self, args: tuple, bind: bool):
+        """Copy the inputs into the static buffers (the held ones only
+        when ``bind``) and replay the graph."""
         owner = self._owner()
         stream = owner.stream
         caller = torch.cuda.current_stream(stream.device)
         stream.wait_stream(caller)
+        pairs = list(zip(_leaves(self._static_in), _leaves(args)))
         with torch.cuda.stream(stream):
-            for dst, src in zip(_leaves(self._static_in), _leaves(args)):
-                if dst is not src:
-                    dst.copy_(src)
+            if bind:
+                with trace.span("program::bind", tag=self.entry):
+                    _copy(pairs[:self._held])
+            _copy(pairs[self._held:])
             self._marks.before_replay(stream)
             self._graph.replay()
             out = _map(torch.clone, self._static_out)
@@ -286,12 +325,15 @@ class ProgramSet:
         """A snapshot of the programs by key."""
         return dict(self._programs)
 
-    def program(self, key: tuple, fn: Callable, args: tuple) -> Program:
+    def program(self, key: tuple, fn: Callable, args: tuple,
+                held: int = 0) -> Program:
         """The program of ``key``, made from a first call's ``args`` if
-        there is none (``fn()`` makes its pipeline)."""
+        there is none (``fn()`` makes its pipeline; it holds the first
+        ``held`` arguments)."""
         program = self._programs.get(key)
         if program is None:
-            program = self._programs[key] = Program(key, fn(), args, self)
+            program = self._programs[key] = Program(key, fn(), args, self,
+                                                    held)
         return program
 
     def pool_and_stream(self, device: torch.device) -> tuple:

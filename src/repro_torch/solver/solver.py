@@ -15,6 +15,16 @@ topology/evaluation seam:
 its order, so their phi is bitwise ``apply``'s; in between the caller
 can read ``plan.conn.overflow`` or ``stats`` without a second build.
 
+Callers whose positions never move and whose charges change every call
+(the matvec of an iterative boundary-integral solve) keep one plan and
+evaluate new charges on it:
+
+    phi = solver.apply_charges(plan, q)      # bitwise apply(z, q)
+
+The topology depends on the positions alone, so this is ``apply``'s phi
+bit for bit; its program holds the plan (``solver.program``) and copies
+only ``q`` on each replay.
+
 Each entry point runs as a compiled program, one per problem shape
 (``solver.program``): on the card the first call at a shape (B, dtype)
 runs the pipeline eagerly, the second captures it as a CUDA graph and
@@ -56,7 +66,8 @@ from .. import trace
 from ..core import fmm as _fmm
 from ..core.config import FmmConfig
 from ..core.fmm import (HEALTH_CLASSES, FmmPlan, Health, fmm_build,
-                        fmm_evaluate, health_of, m2l_mat, unsort)
+                        fmm_evaluate, health_of, m2l_mat, unsort,
+                        with_charges)
 from ..core.topology import connectivity_stats, leaf_layout
 from ..core.topology.tree import split_tables
 from ..device import resolve_device
@@ -128,7 +139,8 @@ ENTRIES = {"apply": ("build", "evaluate"),
            "apply_with_health": ("build", "evaluate"),
            "apply_batched_with_health": ("build", "evaluate"),
            "refresh": ("build",),
-           "apply_plan": ("evaluate",)}
+           "apply_plan": ("evaluate",),
+           "apply_charges": ("evaluate",)}
 
 
 class FmmSolver:
@@ -291,6 +303,8 @@ class FmmSolver:
             return build
         if entry == "apply_plan":
             return evaluate
+        if entry == "apply_charges":
+            return lambda plan, q: evaluate(with_charges(plan, q))
         with_health = entry.endswith("with_health")
 
         def core(z, q):
@@ -303,9 +317,10 @@ class FmmSolver:
 
         return core
 
-    def _run(self, entry: str, *args):
+    def _run(self, entry: str, *args, held: int = 0):
         """``entry``'s program at the shape of ``args`` (made at the first
-        call, with the device constants it reads) run on ``args``: (B, N)
+        call, with the device constants it reads, holding the first
+        ``held`` arguments: ``solver.program``) run on ``args``: (B, N)
         phi in input order, (phi, Health) or a plan."""
         t = args[0] if isinstance(args[0], torch.Tensor) else args[0].tree.z
         key = (entry, t.shape[0], t.dtype, t.device)
@@ -315,7 +330,7 @@ class FmmSolver:
                 self._prepare(half, t)
             return self._pipeline(entry)
 
-        return self._programs.program(key, make, args)(*args)
+        return self._programs.program(key, make, args, held)(*args)
 
     def _to_device(self, a) -> torch.Tensor:
         t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
@@ -415,6 +430,44 @@ class FmmSolver:
         phi = self._run("apply_plan", plan)
         return phi[0] if zs[0] == 1 else phi
 
+    def apply_charges(self, plan: FmmPlan, q) -> torch.Tensor:
+        """Evaluate new charges ``q`` on a built plan (from ``refresh`` or
+        ``plan``), in input order: ``q`` and phi of shape (N,) for a B = 1
+        plan, (B, N) for a plan of B problems. ``q`` is gathered into the
+        tree's order (phase ``fmm::charges``), then the plan is evaluated
+        as ``apply_plan`` evaluates it; phi is bitwise ``apply(z, q)``'s.
+        The program holds the plan: a call with the plan of the last call
+        copies only ``q`` on the card, a call with another plan of the
+        same shapes binds it once (``program.plan_bind``). A plan of
+        another config (N, depth, caps or dtype), or ``q`` of another
+        shape, raises ``ShapeError``."""
+        cfg = self.cfg
+        zs = tuple(plan.tree.z.shape)
+        conn = plan.conn
+        if (len(zs) != 2 or zs[-1] != cfg.n
+                or plan.tree.z.dtype != cfg.torch_complex
+                or len(plan.tree.centers) != cfg.nlevels + 1
+                or conn.p2p.shape[-1] != cfg.strong_cap
+                or conn.weak[-1].shape[-1] != cfg.weak_cap):
+            raise ShapeError(
+                f"apply_charges wants a plan of this config ({zs[-1:]} -> "
+                f"N={cfg.n}, nlevels={cfg.nlevels}, caps "
+                f"{cfg.strong_cap}/{cfg.weak_cap}, {cfg.dtype}); got "
+                f"particles {zs} {plan.tree.z.dtype}, "
+                f"{len(plan.tree.centers) - 1} levels, caps "
+                f"{conn.p2p.shape[-1]}/{conn.weak[-1].shape[-1]}")
+        want = (cfg.n,) if zs[0] == 1 else zs
+        qs = tuple(getattr(q, "shape", ()))
+        if qs != want:
+            raise ShapeError(f"apply_charges wants q of shape {want} for a "
+                             f"plan of {zs}; got {qs}")
+        self._validate_dtypes("apply_charges", q=q)
+        qd = self._to_device(q)
+        # the program holds the plan without its charges: it reads no others
+        bare = FmmPlan(plan.tree._replace(q=None), conn)
+        phi = self._run("apply_charges", bare, qd.reshape(zs), held=1)
+        return phi[0] if zs[0] == 1 else phi
+
     def plan(self, z, q) -> FmmPlan:
         """Topological phase only (tree + connectivity), for inspection."""
         return self.refresh(z, q)
@@ -469,9 +522,9 @@ class FmmSolver:
 
     # -- argument validation (typed errors, repro_torch.errors) ------------
 
-    def _validate_dtypes(self, z, q, entry: str) -> None:
+    def _validate_dtypes(self, entry: str, **arrays) -> None:
         want = np.dtype(self.cfg.complex_dtype)
-        for name, a in (("z", z), ("q", q)):
+        for name, a in arrays.items():
             if isinstance(a, torch.Tensor):
                 if not a.is_complex():
                     raise DTypeError(
@@ -495,7 +548,7 @@ class FmmSolver:
         if zs != (n,) or qs != (n,):
             raise ShapeError(
                 f"{entry} wants z and q of shape ({n},); got z{zs} q{qs}")
-        self._validate_dtypes(z, q, entry)
+        self._validate_dtypes(entry, z=z, q=q)
 
     def _validate_batched(self, z, q) -> None:
         zs, qs = tuple(getattr(z, "shape", ())), tuple(getattr(q, "shape", ()))
@@ -505,4 +558,4 @@ class FmmSolver:
             raise ShapeError(f"N={zs[-1]} != cfg.n={self.cfg.n}")
         if qs != zs:
             raise ShapeError(f"apply_batched wants q of shape {zs}; got {qs}")
-        self._validate_dtypes(z, q, "apply_batched")
+        self._validate_dtypes("apply_batched", z=z, q=q)

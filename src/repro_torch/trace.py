@@ -14,24 +14,25 @@ Counters. ``count(name, n=1)`` adds to an integer counter.
 Device phase marks. Every solver entry point replays as one CUDA graph
 on the card (``solver.program``), and a replay runs no Python: no span
 can time the work inside it. So the pipeline's phases
-(``phase("fmm::tree")``, ``"fmm::connectivity"``, ``"fmm::upward"``,
-``"fmm::downward"``, ``"fmm::evaluation"``, ``"fmm::unsort"``,
-``"fmm::health"``) also record a timing event into the graph while it is
-captured (``torch.cuda.Event(enable_timing=True, external=True)``: an
-event-record node of the graph), and the program adds an end mark after
-the pipeline, still inside the capture (``marking``). Before each replay
-the program records one ordinary timing event on its stream
-(``Marks.before_replay``). A replay's marks are read without blocking:
-at the program's next replay, when its programs are released, or at
-``snapshot()``, whichever comes first, and only if the end mark has
-completed (else the counter ``trace.marks_unread`` rises). Each reading
-is one record under the entry's name (``apply``, ``refresh``,
-``apply_plan``, ``apply_batched_with_health``, ...): the device ms from
-each mark to the next, under the phase's name without its ``fmm::``
-prefix, and ``launch_gap``, the device ms from the event before the
-replay to its first mark (what the device waits for the graph's first
-node). A ring keeps the newest ``REPLAYS`` readings of each entry. Eager
-calls and the CPU record no marks.
+(``phase("fmm::tree")``, ``"fmm::connectivity"``, ``"fmm::charges"``,
+``"fmm::upward"``, ``"fmm::downward"``, ``"fmm::evaluation"``,
+``"fmm::unsort"``, ``"fmm::health"``) also record a timing event into
+the graph while it is captured (``torch.cuda.Event(enable_timing=True,
+external=True)``: an event-record node of the graph), and the program
+adds an end mark after the pipeline, still inside the capture
+(``marking``). Before each replay the program records one ordinary
+timing event on its stream (``Marks.before_replay``). A replay's marks
+are read without blocking: at the program's next replay, when its
+programs are released, or at ``snapshot()``, whichever comes first, and
+only if the end mark has completed (else the counter
+``trace.marks_unread`` rises). Each reading is one record under the
+entry's name (``apply``, ``refresh``, ``apply_plan``, ``apply_charges``,
+``apply_batched_with_health``, ...): the device ms from each mark to the
+next, under the phase's name without its ``fmm::`` prefix, and
+``launch_gap``, the device ms from the event before the replay to its
+first mark (what the device waits for the graph's first node). A ring
+keeps the newest ``REPLAYS`` readings of each entry. Eager calls and the
+CPU record no marks.
 
 There is no switch and no file: ``snapshot()`` is the way out, and
 ``reset()`` empties everything.

@@ -814,8 +814,9 @@ def _phases_backend(cuda):
 @pytest.mark.parametrize("backend", ["cuda", "cuda-phases"])
 def test_each_entry_point_replays_its_eager_pipeline_bitwise(cuda, dtype,
                                                              backend):
-    """Each of the five entry points (``apply``, ``apply_with_health``,
-    ``apply_batched`` at B = 4, ``refresh``, ``apply_plan``): the first
+    """Each of the six entry points (``apply``, ``apply_with_health``,
+    ``apply_batched`` at B = 4, ``refresh``, ``apply_plan``,
+    ``apply_charges``): the first
     call launches one run's kernels from the host (the main path's, or
     the per-phase path's), the second records them into its capture and
     launches nothing from the host, a replay launches nothing from the
@@ -852,7 +853,7 @@ def test_each_entry_point_replays_its_eager_pipeline_bitwise(cuda, dtype,
         assert all(torch.equal(a, b) for a, b in
                    zip(smoke.leaves(got), smoke.leaves(ref))), entry
         assert (prog.calls, prog.replays) == (3, 2)
-    assert solver._compiled_program_count() == 5
+    assert solver._compiled_program_count() == 6
 
 
 def test_replay_phase_marks_read_positive_device_times(cuda):
@@ -892,6 +893,46 @@ def test_replay_phase_marks_read_positive_device_times(cuda):
                                 "unsort"}
         assert all(v > 0 for v in reading.values()), reading
         assert sum(reading.values()) <= span, (reading, span)
+    solver._release_executables()
+    trace.reset()
+
+
+def test_log_matvec_at_2_20_replays_its_plan_without_topology(cuda):
+    """The held-plan log matvec at the benchmark's shapes (2^20 layer
+    particles, f64, G = log, caps 256/1024): ``apply_charges`` on one
+    plan for three charge vectors and back, every call bitwise the eager
+    pipeline and the first bitwise ``apply``; the replays' device marks
+    hold the charge gather and the evaluate half and no tree or
+    connectivity, and the plan was bound once."""
+    from repro_torch.core.config import num_levels_for
+    smoke = _smoke()
+    n = 1 << 20
+    cfg = FmmConfig(n=n, nlevels=num_levels_for(n, 45), p=17, dtype="f64",
+                    kernel="log", strong_cap=256, weak_cap=1024)
+    z, q0 = particles("layer", n, 3, device=cuda)
+    charges = [particles("layer", n, s, device=cuda)[1].real + 0j
+               for s in (4, 5, 6)]
+    solver = FmmSolver(cfg, "cuda")
+    plan = solver.refresh(z, q0)
+    trace.reset()
+    for k, q in enumerate(charges + charges[:1]):
+        got = solver.apply_charges(plan, q)
+        ref = smoke.eager_entry(solver, "apply_charges", plan,
+                                q.to(cfg.torch_complex)[None])[0]
+        assert torch.equal(got, ref), k
+        assert bool(torch.isfinite(got).all())
+    snap = trace.snapshot()
+    assert snap["counters"]["program.plan_bind"] == 1
+    assert (snap["counters"]["program.eager"],
+            snap["counters"]["program.capture"],
+            snap["counters"]["program.replay"]) == (1, 1, 3)
+    readings = snap["phases"]["apply_charges"]
+    assert len(readings) == 3
+    for reading in readings:
+        assert set(reading) == {"launch_gap", "charges", "upward",
+                                "downward", "evaluation", "unsort"}
+        assert all(v > 0 for v in reading.values()), reading
+    assert torch.equal(solver.apply(z, charges[0]), got)
     solver._release_executables()
     trace.reset()
 
