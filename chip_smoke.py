@@ -1358,14 +1358,22 @@ def log_phase(torch) -> list[dict]:
     Real parts only: the imaginary part q arg(z - x) may take another
     branch in another order of evaluation (multiples of 2 pi q, no error;
     the kernels' own gates in (a) compare both parts, operand for
-    operand). Returns the kernel rows, with their launches in one
+    operand). Prints the fused evaluation's log-branch time beside its
+    bound, and the rise of the counter ``eval_fused.log_launches`` over
+    (b) (one an eager run or capture of the kernel, none a replay).
+    Returns the kernel rows, with their launches in one
     ``apply_charges``."""
+    from repro_torch import trace
     from repro_torch.core.direct import direct_potential
     from repro_torch.data import particles
     from repro_torch.solver import FmmSolver
 
     dt = "f64"
     rows = kernel_phase(dt, torch, kernel="log")
+    ev = next(r for r in rows if r["name"] == f"eval_fused_log_{dt}")
+    print(f"log branch: eval_fused {dt} {ev['ms']:.4f} ms, bound "
+          f"{ev['bound_ms']:.4f} ms ({ev['bound_by']}), "
+          f"{100 * ev['bound_ms'] / ev['ms']:.2f}% of it", flush=True)
     cfg = log_config(dt)
     z, q = particles("layer", N, SEED)
     tag = f"log[{dt}/layer]"
@@ -1376,7 +1384,14 @@ def log_phase(torch) -> list[dict]:
           f"{tag}: lists overflow caps {LOG_CAPS}")
     call, eager, want = entry_calls(solver, z, q, zc, qc,
                                     plan)["apply_charges"]
+    before = trace.snapshot()["counters"].get("eval_fused.log_launches", 0)
     entry_phase(f"{tag}/apply_charges", solver, call, eager, want, torch)
+    rise = (trace.snapshot()["counters"].get("eval_fused.log_launches", 0)
+            - before)
+    print(f"{tag}: eval_fused.log_launches +{rise} over {GRAPH_REPS} eager "
+          f"pipeline runs, the first call, the capture and "
+          f"{GRAPH_REPS + 1} replays (each eager run or capture counts "
+          f"one, a replay none)", flush=True)
     phi = call()
     qr = q.flip(0)
     sample = torch.randperm(N, generator=torch.Generator().manual_seed(

@@ -2,7 +2,8 @@
 """Time the port's kernels on one CUDA card, for one source tree.
 
     python3 scripts/time_kernels.py [--src DIR] [--label TEXT]
-                                    [--only NAME,...]
+                                    [--only NAME,...] [--kernel log]
+                                    [--sass]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``;
 another tree's ``src``, e.g. an earlier commit unpacked with ``git
@@ -22,7 +23,16 @@ registers, SASS instructions a pair in its pair loop, and the SM clock
 and power that ``nvidia-smi`` sampled during the all-pairs launches
 (``--only`` times the kernels named; "nbody_all" is the all-pairs
 launch, "m2l_levels" the per-phase path's M2L, one launch a level,
-timed and digested as one). The operands come from the seed,
+timed and digested as one). ``--kernel log`` times the kernels with an
+f64 log branch (the fused evaluation, P2P, M2L and P2L) on the log leg's
+plan instead (``chip_smoke.log_config``: layer particles, G = log, caps
+256/1024). ``--sass`` also prints one JSON line of the fused evaluation's
+and the P2P kernel's code: a digest of each instantiation's SASS
+(``cuobjdump -sass``; equal digests across two trees: the same machine
+code), its registers and spills (``-Xptxas -v``) and the opcode mix of
+its pair loop (``chip_smoke.sass_pair_loop``: the innermost loop with
+the most reciprocal estimates, one a harmonic pair and two a log pair in
+f64). The operands come from the seed,
 so two trees whose kernel gives bitwise the same output print the same
 digest; the fused evaluation and L2P take their local-expansion planes
 from the seed too (not from the downward pass, whose M2L and P2L
@@ -35,6 +45,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -48,6 +59,13 @@ import chip_smoke as smoke  # noqa: E402
 # Positions of the local-expansion planes (real, imaginary) among the
 # operands of the kernels that read them.
 LOCAL_PLANES = {"eval_fused": (9, 10), "l2p": (0, 1)}
+# The kernels ``--kernel log`` times.
+LOG_TIMED = ("eval_fused", "p2p", "m2l", "p2l")
+# The libraries whose code ``--sass`` reports (they share the pair loop).
+SASS_LIBS = ("eval_fused", "p2p")
+# One instruction of ``cuobjdump -sass``: address, text, encoding words.
+SASS_LINE = (r"/\*([0-9a-f]{4,})\*/\s+(.*?);\s+/\* (0x[0-9a-f]+) \*/\s*\n"
+             r"\s*/\* (0x[0-9a-f]+) \*/")
 
 
 def output_digest(name: str, kern, args, kwargs, torch) -> str:
@@ -89,6 +107,33 @@ def sampled_clock(fn):
     return out, {"sm_mhz": med(0), "power_w": med(1), "samples": len(samples)}
 
 
+def sass_report(logs: dict) -> dict:
+    """Per instantiation of each kernel of SASS_LIBS: a digest of its
+    SASS instructions, its ``-Xptxas -v`` line and its pair loop."""
+    from repro_torch.kernels.build import LIBRARIES, nvcc_path
+
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    out = {}
+    for lib in SASS_LIBS:
+        sass = subprocess.run([str(tool), "-sass",
+                               str(LIBRARIES[lib].target())],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        ptxas = {line.split(":", 1)[0].strip(): line.split(":", 1)[1].strip()
+                 for line in smoke.ptxas_summary(logs.get(lib, ""))}
+        loops = smoke.sass_pair_loop(sass, f"{lib}_kernel")
+        for block in re.split(r"\n\s*Function : ", sass)[1:]:
+            name = smoke.demangle(block.split("\n", 1)[0].strip())
+            # each instruction and its two encoding words, without the
+            # padding, which follows the longest line of the whole file
+            code = "\n".join(" ".join(" ".join(part.split()) for part in ins)
+                             for ins in re.findall(SASS_LINE, block))
+            out[f"{lib}:{name}"] = dict(
+                sass=hashlib.sha256(code.encode()).hexdigest()[:16],
+                ptxas=ptxas.get(name), loop=loops.get(name))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"),
@@ -97,6 +142,11 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=smoke.KERNEL_REPS)
     ap.add_argument("--only", default="",
                     help="comma-separated kernels to time (default: all)")
+    ap.add_argument("--kernel", choices=("harmonic", "log"),
+                    default="harmonic",
+                    help="log: the f64 log branches on the log leg's plan")
+    ap.add_argument("--sass", action="store_true",
+                    help="also print the SASS digests and pair loops")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
 
@@ -111,14 +161,20 @@ def main() -> int:
 
     print(f"{args.label}: repro_torch from {Path(repro_torch.__file__).parent}"
           f"; {smoke.card_line()}", flush=True)
-    build_all()
-    code = smoke.nbody_code()
-    for dt in ("f32", "f64"):
-        z, q = particles("uniform", smoke.N, smoke.SEED)
-        cfg, cap, occupied = smoke.capture(
-            fmm_config(smoke.N, p=smoke.P_TERMS, dtype=dt), z, q, torch)
+    logs = build_all()
+    if args.sass:
+        print(json.dumps({"label": args.label, "sass": sass_report(logs)}),
+              flush=True)
+    log = args.kernel == "log"
+    code = None if log else smoke.nbody_code()
+    for dt in ("f64",) if log else ("f32", "f64"):
+        z, q = particles("layer" if log else "uniform", smoke.N, smoke.SEED)
+        start = (smoke.log_config(dt) if log else
+                 fmm_config(smoke.N, p=smoke.P_TERMS, dtype=dt))
+        cfg, cap, occupied = smoke.capture(start, z, q, torch)
         ms, digest = {}, {}
-        only = set(filter(None, args.only.split(",")))
+        only = (set(filter(None, args.only.split(",")))
+                or (set(LOG_TIMED) if log else set()))
         for name, (kern, _) in smoke.kernel_impls(cfg).items():
             if only and name not in only:
                 continue
@@ -138,8 +194,8 @@ def main() -> int:
                 for out in m2l_cuda(*a):
                     h.update(out.cpu().numpy().tobytes())
             digest["m2l_levels"] = h.hexdigest()[:16]
-        line = {"label": args.label, "dtype": dt, "occupied": occupied,
-                "ms": ms, "digest": digest}
+        line = {"label": args.label, "dtype": dt, "kernel": args.kernel,
+                "occupied": occupied, "ms": ms, "digest": digest}
         if not only or "nbody_all" in only:
             # every particle a target: the direct baseline's launch
             kern = smoke.kernel_impls(cfg)["nbody"][0]

@@ -34,12 +34,15 @@ static inline int launch_status() { return static_cast<int>(cudaGetLastError());
 // Shared memory one block may take on the H100 (sm_90) once it opts in.
 constexpr size_t SMEM_OPTIN = 227 * 1024;
 
-// Let `kernel` take `bytes` of dynamic shared memory: above the default
-// 48 KB a kernel must opt in. Returns the CUDA error code (0 on success).
+// Let `kernel` take `bytes` of dynamic shared memory beside `reserve`
+// bytes of its own static shared memory: where the two together pass the
+// default 48 KB a kernel must opt in. Returns the CUDA error code (0 on
+// success).
 template <typename K>
-static int allow_smem(K kernel, size_t bytes) {
-  if (bytes > SMEM_OPTIN) return static_cast<int>(cudaErrorInvalidValue);
-  if (bytes <= 48 * 1024) return 0;
+static int allow_smem(K kernel, size_t bytes, size_t reserve = 0) {
+  if (bytes + reserve > SMEM_OPTIN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bytes + reserve <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes)));

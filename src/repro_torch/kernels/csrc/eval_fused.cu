@@ -49,9 +49,19 @@
 //    gives a non-finite phi.
 // 6. All occupied m2p rows (coefficients, center, radius) are staged in
 //    one pass with one warp barrier, in the ring's space once the P2P
-//    sums are done. The L2P and M2P Horner loops and the log kernel's
-//    log/atan2 are unchanged. No atomics: results are bitwise
-//    reproducible and a problem's row of a batch equals its own apply.
+//    sums are done. The L2P and M2P Horner loops are unchanged. No
+//    atomics: results are bitwise reproducible and a problem's row of a
+//    batch equals its own apply.
+// 7. The log kernel in f64 takes each pair's and each M2P target's
+//    complex logarithm from clog.cuh (branch-free, two table rows; 41 f64
+//    instructions of 99 a pair, within 2 ulp of log and atan2) instead of
+//    the library's log and atan2 (a division, special-case branches, an
+//    atan polynomial over [0, 1]), with which the log evaluation took 7.6
+//    times the harmonic one on the same 2^20 plan. Its tables (6 KB) are
+//    staged once a block into static shared memory before the warps part;
+//    the dynamic staging regions fit beside them, and the launch opts in
+//    above 48 KB where the two together pass it. In f32 the library's
+//    logf and atan2f stay.
 #include "pairs.cuh"
 
 constexpr int WARPS = 4;       // target leaves per block, one warp each
@@ -108,9 +118,16 @@ __device__ __forceinline__ void m2p_term(const T* __restrict__ a, int P,
     hr = nr;
   }
   T fr = hr * wr - hi * wi, fi = hr * wi + hi * wr;
-  if (LOG) {                                    // + a_0 log(z - z0_src)
-    const T lr = ok ? T(0.5) * log(d2) : T(0);
-    const T li = ok ? atan2(dxi, dxr) : T(0);
+  if constexpr (LOG) {                          // + a_0 log(z - z0_src)
+    T lr, li;
+    if constexpr (sizeof(T) == 8) {
+      const CLog l = clog_pair(-dxr, -dxi, d2);
+      lr = ok ? l.re : T(0);
+      li = ok ? l.im : T(0);
+    } else {
+      lr = ok ? T(0.5) * log(d2) : T(0);
+      li = ok ? atan2(dxi, dxr) : T(0);
+    }
     fr += a[0] * lr - a_i[0] * li;
     fi += a[0] * li + a_i[0] * lr;
   }
@@ -134,6 +151,7 @@ __global__ void __launch_bounds__(WARPS * 32, 5) eval_fused_kernel(
   const int n = NF > 0 ? NF : n_;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int box = blockIdx.x * (blockDim.x >> 5) + warp;
+  if constexpr (LOG && sizeof(T) == 8) clog_stage();   // a block barrier
   if (box >= nb) return;                 // warp-uniform: warp barriers only
   const long long b = blockIdx.y, row = b * nb + box;
 
@@ -201,14 +219,18 @@ __global__ void __launch_bounds__(WARPS * 32, 5) eval_fused_kernel(
 }
 
 // Warps (target leaves) per block: WARPS, or fewer where their staging
-// regions would not fit in a block's shared memory.
-static int warps_per_block(size_t elem, int n, int P, int S, int Sm) {
-  return fit_warps(warp_bytes(elem, n, P, S, Sm), WARPS);
+// regions would not fit in a block's shared memory beside `reserve`
+// bytes of static shared memory.
+static int warps_per_block(size_t elem, int n, int P, int S, int Sm,
+                           size_t reserve = 0) {
+  return fit_warps(warp_bytes(elem, n, P, S, Sm), WARPS, reserve);
 }
 
 // Dynamic shared memory of one block: each warp's region.
-static size_t smem_bytes(size_t elem, int n, int P, int S, int Sm) {
-  return warps_per_block(elem, n, P, S, Sm) * warp_bytes(elem, n, P, S, Sm);
+static size_t smem_bytes(size_t elem, int n, int P, int S, int Sm,
+                         size_t reserve = 0) {
+  return warps_per_block(elem, n, P, S, Sm, reserve)
+         * warp_bytes(elem, n, P, S, Sm);
 }
 
 template <typename T, bool LOG, int NF>
@@ -220,7 +242,8 @@ static int launch_one(dim3 grid, int wpb, size_t smem, cudaStream_t s,
                       const void* ar, const void* ai, const void* mcr,
                       const void* mci, const void* mrho, int nb, int n,
                       int P, void* outr, void* outi) {
-  const int rc = allow_smem(eval_fused_kernel<T, LOG, NF>, smem);
+  const int rc = allow_smem(eval_fused_kernel<T, LOG, NF>, smem,
+                           LOG && sizeof(T) == 8 ? CLOG_SMEM : 0);
   if (rc) return rc;
   eval_fused_kernel<T, LOG, NF><<<grid, wpb * 32, smem, s>>>(
       (const int32_t*)p2p, S, (const int32_t*)m2p, Sm, (const T*)zr,
@@ -240,10 +263,12 @@ static int launch(const void* p2p, int S, const void* m2p, int Sm,
                   const void* mci, const void* mrho, int B, int nb, int n,
                   int P, int log_kernel, void* outr, void* outi,
                   void* stream) {
-  const int wpb = warps_per_block(sizeof(T), n, P, S, Sm);
+  // the f64 log branch holds the clog tables in static shared memory
+  const size_t reserve = log_kernel && sizeof(T) == 8 ? CLOG_SMEM : 0;
+  const int wpb = warps_per_block(sizeof(T), n, P, S, Sm, reserve);
   if (n < 1 || P < 2 || S < 1 || wpb < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(sizeof(T), n, P, S, Sm);
+  const size_t smem = smem_bytes(sizeof(T), n, P, S, Sm, reserve);
   const dim3 grid((nb + wpb - 1) / wpb, B);
   cudaStream_t s = (cudaStream_t)stream;
 #define EVAL_ARGS                                                             \

@@ -21,7 +21,9 @@
 // the listed source leaves as packed records through a two-stage
 // cp.async ring, bounds each leaf's loop by its valid count and tests
 // ranks only in the own-leaf slot; the harmonic reciprocal is
-// rcp.approx + Newton. Only warp barriers; no atomics: results are
+// rcp.approx + Newton, the f64 log pair's logarithm clog.cuh's (its
+// tables staged once a block, behind the one block barrier). Otherwise
+// only warp barriers; no atomics: results are
 // bitwise reproducible and a problem's row of a batch equals its own
 // launch. It replaces a first design (one block a leaf, one thread a
 // target, a serial list scan, two block barriers a source leaf and an
@@ -47,6 +49,7 @@ __global__ void __launch_bounds__(WARPS * 32, 5) p2p_kernel(
   const int n = NF > 0 ? NF : n_;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int box = blockIdx.x * (blockDim.x >> 5) + warp;
+  if constexpr (LOG && sizeof(T) == 8) clog_stage();   // a block barrier
   if (box >= nb) return;                 // warp-uniform: warp barriers only
   const long long b = blockIdx.y, row = b * nb + box;
 
@@ -80,13 +83,14 @@ __global__ void __launch_bounds__(WARPS * 32, 5) p2p_kernel(
   }
 }
 
-static int warps_per_block(size_t elem, int n, int S) {
-  return fit_warps(warp_bytes(elem, n, S), WARPS);
+static int warps_per_block(size_t elem, int n, int S, size_t reserve = 0) {
+  return fit_warps(warp_bytes(elem, n, S), WARPS, reserve);
 }
 
-// Dynamic shared memory of one block: each warp's ring and list row.
-static size_t smem_bytes(size_t elem, int n, int S) {
-  return warps_per_block(elem, n, S) * warp_bytes(elem, n, S);
+// Dynamic shared memory of one block: each warp's ring and list row
+// (`reserve`: static shared memory beside it, the clog tables).
+static size_t smem_bytes(size_t elem, int n, int S, size_t reserve = 0) {
+  return warps_per_block(elem, n, S, reserve) * warp_bytes(elem, n, S);
 }
 
 template <typename T, bool LOG, int NF>
@@ -95,7 +99,8 @@ static int launch_one(dim3 grid, int wpb, size_t smem, cudaStream_t s,
                       const void* zi, const void* qr, const void* qi,
                       const void* rk, int nb, int n, void* outr,
                       void* outi) {
-  const int rc = allow_smem(p2p_kernel<T, LOG, NF>, smem);
+  const int rc = allow_smem(p2p_kernel<T, LOG, NF>, smem,
+                           LOG && sizeof(T) == 8 ? CLOG_SMEM : 0);
   if (rc) return rc;
   p2p_kernel<T, LOG, NF><<<grid, wpb * 32, smem, s>>>(
       (const int32_t*)lists, S, (const T*)zr, (const T*)zi, (const T*)qr,
@@ -108,9 +113,10 @@ static int launch(const void* lists, int S, const void* zr, const void* zi,
                   const void* qr, const void* qi, const void* rk, int B,
                   int nb, int n, int log_kernel, void* outr, void* outi,
                   void* stream) {
-  const int wpb = warps_per_block(sizeof(T), n, S);
+  const size_t reserve = log_kernel && sizeof(T) == 8 ? CLOG_SMEM : 0;
+  const int wpb = warps_per_block(sizeof(T), n, S, reserve);
   if (n < 1 || S < 1 || wpb < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes(sizeof(T), n, S);
+  const size_t smem = smem_bytes(sizeof(T), n, S, reserve);
   const dim3 grid((nb + wpb - 1) / wpb, B);
   cudaStream_t s = (cudaStream_t)stream;
 #define P2P_ARGS \

@@ -201,12 +201,14 @@ def _twice(fn):
     return first
 
 
-def _pair_kernel(which, cfg, cuda, seed=0):
+def _pair_kernel(which, cfg, cuda, seed=0, zq=None):
     """The operands of the fused evaluation or of the P2P kernel (the
-    two kernels share one pair loop) on one uniform problem: (kernel
-    call, plain call, its zr, zi and rank planes), the planes as the
-    calls see them, so a test may edit them in place."""
-    z, q = particles("uniform", cfg.n, seed, device=cuda)
+    two kernels share one pair loop) on one uniform problem (or on the
+    particles ``zq``): (kernel call, plain call, its zr, zi and rank
+    planes), the planes as the calls see them, so a test may edit them
+    in place."""
+    z, q = zq if zq is not None else particles("uniform", cfg.n, seed,
+                                               device=cuda)
     plan = F.fmm_build(z[None], q[None], cfg)
     if which == "p2p":
         args, kw = p2p_operands(plan.tree, plan.conn, cfg)
@@ -231,7 +233,9 @@ PAIR_KERNELS = ["eval_fused", "p2p"]
     (1 << 14, 4, "f32", "harmonic"),
     ((1 << 14) - 200, 4, "f64", "harmonic"),   # n_max 64, padded tails
     ((1 << 14) - 200, 4, "f64", "log"),
+    (1 << 14, 4, "f64", "log"),           # full leaves: the NF = 64 loop
     (3000, 3, "f64", "harmonic"),         # n_max 47: generic
+    (3000, 3, "f64", "log"),
     (6000, 3, "f32", "harmonic"),         # n_max 94: generic, two passes
 ])
 def test_eval_fused_kernel_instantiations(cuda, which, n, nlevels, dtype,
@@ -276,6 +280,165 @@ def test_eval_fused_padded_slot_at_a_target_stays_out(cuda, which):
     valid = rk[None] >= 0
     assert bool(torch.isfinite(got[valid]).all())
     assert _rel(got[valid], ref[valid]) <= 1e-10
+
+
+def _lattice(m, cuda, seed):
+    """m * m particles on a square lattice of the unit square (rows share
+    y, columns share x) with N(0, 1) complex charges."""
+    g = (torch.arange(m, dtype=torch.float64) + 0.5) / m
+    z = torch.complex(g.repeat(m), g.repeat_interleave(m))
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.complex(*torch.randn(2, m * m, generator=gen,
+                                   dtype=torch.float64))
+    return z.to(cuda), q.to(cuda)
+
+
+@pytest.mark.parametrize("which", PAIR_KERNELS)
+@pytest.mark.parametrize("m,nlevels", [(128, 4),    # n 64: the NF = 64 loop
+                                       (54, 3)])    # n_max 46: generic n
+def test_log_branch_on_a_lattice_matches_plain(cuda, which, m, nlevels):
+    """The f64 log branch where particles share coordinates: pairs with
+    dy = +-0 on both sides of the target (atan2's branch cut: arg(z - x)
+    = -pi where x lies right of z on its row) and dx = +-0; the real and
+    the imaginary part each within 1e-10 of the plain version (the other
+    side of the cut would be off by 2 pi q)."""
+    cfg = FmmConfig(n=m * m, nlevels=nlevels, p=17, dtype="f64",
+                    kernel="log")
+    run, plain, _, _, _ = _pair_kernel(which, cfg, cuda,
+                                       zq=_lattice(m, cuda, 8))
+    got, ref = _twice(run), plain()
+    for a, b in zip(got, ref):
+        assert bool(torch.isfinite(a).all())
+        assert _rel(a, b) <= 1e-10
+
+
+@pytest.mark.parametrize("which", PAIR_KERNELS)
+def test_log_branch_keeps_a_coincident_pair_non_finite(cuda, which):
+    """As the harmonic test: two distinct particles of one leaf at one
+    position give both targets a non-finite phi (log 0), in the kernel
+    and in the plain version; every other target finite and equal."""
+    cfg = FmmConfig(n=1 << 12, nlevels=3, p=17, dtype="f64", kernel="log")
+    run, plain, zr, zi, _ = _pair_kernel(which, cfg, cuda, seed=4)
+    zr[0, 5, 9], zi[0, 5, 9] = zr[0, 5, 2], zi[0, 5, 2]
+    got = torch.complex(*_twice(run))
+    ref = torch.complex(*plain())
+    bad = ~torch.isfinite(got)
+    assert torch.equal(bad, ~torch.isfinite(ref))
+    assert bad[0, 5, 2] and bad[0, 5, 9] and int(bad.sum()) == 2
+    assert _rel(got[~bad], ref[~bad]) <= 1e-10
+
+
+def test_log_branch_replays_bitwise_and_counts_its_launches(cuda):
+    """``apply`` of the f64 log config: the eager first call and the
+    capture each add one to ``eval_fused.log_launches``, the replays
+    none, and every call is bitwise the eager one; the f32 log branch and
+    the harmonic one add none."""
+    cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype="f64", kernel="log")
+    z, q = particles("layer", cfg.n, 7, device=cuda)
+    solver = FmmSolver(cfg, "cuda")
+    trace.reset()
+
+    def count():
+        return trace.snapshot()["counters"].get("eval_fused.log_launches", 0)
+
+    ref = solver.apply(z, q)
+    seen = [count()]
+    for _ in range(3):                       # capture + replay, 2 replays
+        assert torch.equal(solver.apply(z, q), ref)
+        seen.append(count())
+    assert seen == [1, 2, 2, 2]
+    assert [p.replays for p in solver.programs().values()] == [3]
+    for other in (dataclasses.replace(cfg, dtype="f32"),
+                  dataclasses.replace(cfg, kernel="harmonic")):
+        FmmSolver(other, "cuda").apply(z, q)
+    assert count() == 2
+    solver._release_executables()
+    trace.reset()
+
+
+@pytest.mark.parametrize("which,cap", [("eval_fused", 256), ("p2p", 512)])
+def test_log_branch_opts_in_beside_its_tables(cuda, which, cap):
+    """Leaves of 128 particles and wide lists: each f64 log launch gives
+    its warps 45,056 bytes of dynamic shared memory, under 48 KB alone
+    but not beside the clog tables' 6,208 static bytes, so the launch
+    must opt in above 48 KB (without it the launch fails as an invalid
+    argument). Against the plain version, twice bitwise equal."""
+    from repro_torch.kernels.build import LIBRARIES
+    assert LIBRARIES[which].smem_bytes(8, 128, 18, cap) == 45056
+    cfg = FmmConfig(n=1 << 15, nlevels=4, p=17, dtype="f64", kernel="log",
+                    strong_cap=cap)
+    run, plain, _, _, _ = _pair_kernel(which, cfg, cuda, seed=3)
+    got = _twice(run)
+    assert _rel(torch.complex(*got), torch.complex(*plain())) <= 1e-10
+
+
+def _clog_cpu():
+    """``tests/test_torch_clog.py`` as a module: its draws and ``_ulps``."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "clog_cpu", ROOT / "tests" / "test_torch_clog.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _pair_logs(dx, dy, cuda):
+    """The P2P kernel's f64 log branch over one leaf a pair: a target at 0
+    without charge and a source at (dx, dy) with charge 1, each leaf's
+    list itself. The target's phi is then exactly the pair's (log|d|,
+    arg(-d)), d = source - target, but for the sign of a zero."""
+    nb = len(dx)
+    zero = np.zeros(nb)
+
+    def plane(a, b):
+        return torch.from_numpy(np.stack([a, b], -1)[None]).to(cuda)
+
+    zr, zi, qr = plane(zero, dx), plane(zero, dy), plane(zero, zero + 1)
+    lists = torch.arange(nb, dtype=torch.int32, device=cuda).view(1, nb, 1)
+    rk = torch.arange(2 * nb, dtype=torch.int32, device=cuda).view(nb, 2)
+    out = _twice(lambda: p2p_cuda(lists, zr, zi, qr, torch.zeros_like(zr),
+                                  rk, kernel="log"))
+    return tuple(o[0, :, 0].cpu().numpy() for o in out)
+
+
+def test_log_pairs_on_the_card_within_two_ulp_of_numpy(cuda):
+    """The compiled pair logarithm, pair by pair, on the CPU test's draws
+    (10^6 pairs) and on every pair of {+-0, +-v}: arg(-d) within 2 ulp of
+    numpy's arctan2 and equal to it on the exact classes (an axis, the
+    branch cut's +-pi included, or |dx| = |dy|), log|d| within 2 ulp of numpy's log(d2) / 2 on pairs whose
+    dx and dy are cut to 26 significant bits (both squares exact, so d2
+    rounds once whichever product the compiler fuses into the sum and
+    equals numpy's) and within 1 ulp on the axes, -inf where d = 0.
+    Prints the largest errors."""
+    clog = _clog_cpu()
+    dx, dy = clog._draw(np.random.default_rng(20261019), 1 << 20)
+    keep = ~np.uint64((1 << 27) - 1)
+
+    def cut(x):
+        return (x.view(np.uint64) & keep).view(np.float64)
+
+    v = np.array([0.0, -0.0, 0.5, -0.5, 1.0, -1.0, 3.0, -3.0, 1e-30, -1e-30,
+                  1e30, -1e30, 0.7071067811865476, -0.7071067811865476])
+    ex, ey = np.repeat(v, len(v)), np.tile(v, len(v))
+    nd = len(dx)
+    re_, im = _pair_logs(np.concatenate([dx, cut(dx), ex]),
+                         np.concatenate([dy, cut(dy), ey]), cuda)
+    X, Y = np.concatenate([dx, cut(dx)]), np.concatenate([dy, cut(dy)])
+    ulp_im = clog._ulps(im[:2 * nd], np.arctan2(-Y, -X))
+    cx, cy = X[nd:], Y[nd:]
+    ulp_re = clog._ulps(re_[nd:2 * nd], 0.5 * np.log(cx * cx + cy * cy))
+    print(f"card clog: arg max {ulp_im.max():.3f} ulp "
+          f"(<= 1: {(ulp_im <= 1).mean():.6f}); log max {ulp_re.max():.3f} "
+          f"ulp (<= 1: {(ulp_re <= 1).mean():.6f}) over {nd} pairs")
+    assert ulp_im.max() <= 2 and ulp_re.max() <= 2
+    zero, axis = (ex == 0) & (ey == 0), (ex == 0) != (ey == 0)
+    exact = axis | ((np.abs(ex) == np.abs(ey)) & ~zero)
+    want = np.arctan2(-ey, -ex)
+    assert np.isneginf(re_[2 * nd:][zero]).all()
+    assert np.array_equal(im[2 * nd:][exact], want[exact])
+    assert clog._ulps(im[2 * nd:][~zero], want[~zero]).max() <= 2
+    wre = 0.5 * np.log(ex[axis] ** 2 + ey[axis] ** 2)    # one product
+    assert clog._ulps(re_[2 * nd:][axis], wre).max() <= 1
 
 
 def _p2l_args(cfg, cuda, seed, dists=("uniform", "normal")):
