@@ -1359,11 +1359,11 @@ def log_phase(torch) -> list[dict]:
     branch in another order of evaluation (multiples of 2 pi q, no error;
     the kernels' own gates in (a) compare both parts, operand for
     operand). Prints the fused evaluation's log-branch time beside its
-    bound, and the rise of the counter ``eval_fused.log_launches`` over
-    (b) (one an eager run or capture of the kernel, none a replay).
+    bound, and the launches of ``eval_fused`` (here its f64 log branch)
+    that the ``apply_charges`` program counted in (b): one in its eager
+    first call, one recorded in its capture (a replay launches none).
     Returns the kernel rows, with their launches in one
     ``apply_charges``."""
-    from repro_torch import trace
     from repro_torch.core.direct import direct_potential
     from repro_torch.data import particles
     from repro_torch.solver import FmmSolver
@@ -1384,14 +1384,17 @@ def log_phase(torch) -> list[dict]:
           f"{tag}: lists overflow caps {LOG_CAPS}")
     call, eager, want = entry_calls(solver, z, q, zc, qc,
                                     plan)["apply_charges"]
-    before = trace.snapshot()["counters"].get("eval_fused.log_launches", 0)
     entry_phase(f"{tag}/apply_charges", solver, call, eager, want, torch)
-    rise = (trace.snapshot()["counters"].get("eval_fused.log_launches", 0)
-            - before)
-    print(f"{tag}: eval_fused.log_launches +{rise} over {GRAPH_REPS} eager "
-          f"pipeline runs, the first call, the capture and "
-          f"{GRAPH_REPS + 1} replays (each eager run or capture counts "
-          f"one, a replay none)", flush=True)
+    prog = next(p for k, p in solver.programs().items()
+                if k[0] == "apply_charges")
+    first, captured = (prog.launches.get("eval_fused"),
+                       prog.recorded.get("eval_fused"))
+    print(f"{tag}: apply_charges program: eval_fused launched {first} in "
+          f"the first call, recorded {captured} in the capture, "
+          f"{prog.replays} replays", flush=True)
+    check(first == 1 and captured == 1,
+          f"{tag}: eval_fused launched {first} / recorded {captured} "
+          f"(want 1 / 1)")
     phi = call()
     qr = q.flip(0)
     sample = torch.randperm(N, generator=torch.Generator().manual_seed(

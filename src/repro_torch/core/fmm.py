@@ -24,6 +24,10 @@ back to rank order by a gather (each rank owns one slot) — no
 ``index_add_``, whose atomics would make CUDA results change from run to
 run.
 
+The downward pass takes each level's M2L contribution from the fused
+hook, the per-level hook or the plain sweep, and folds them all with one
+L2L loop (``_downward``).
+
 Each phase runs inside a ``repro_torch.trace.phase`` named
 ``fmm::<phase>`` (tree, connectivity, upward, downward, evaluation;
 charges, where new charges go onto a held plan, ``with_charges``): a
@@ -292,60 +296,41 @@ def downward(mult, tree: Tree, conn: Connectivity, cfg: FmmConfig,
              rho=None, p2l_impl=None) -> torch.Tensor:
     """Local coefficients at the leaf level (M2L, L2L, P2L), level by
     level — the plain sweep."""
-    mat = m2l_mat(cfg.p, cfg.torch_real, mult[-1].device)
+    return _downward(mult, tree, conn, cfg, rho, p2l_impl)
 
-    def m2l(m, weak, centers, c, r):
-        return m2l_level(m, weak, centers, c, mat, r)
 
+def _downward(mult, tree: Tree, conn: Connectivity, cfg: FmmConfig,
+              rho=None, p2l_impl=None, m2l_impl=None,
+              m2l_fused_impl=None) -> torch.Tensor:
+    """The downward pass with its hooks. Each level's (B, 4**l, p+1) M2L
+    contribution, l = 1..L (with no level below the root, the root's
+    own), comes from ``m2l_fused_impl(mult, weak, centers, cfg, rho)``
+    (every level in one launch), else from ``m2l_impl(mult, weak,
+    centers, cfg, rho)`` once a level (one launch a level), else from
+    the plain ``m2l_level``. One fold then runs L2L from the root down,
+    adding each level's contribution after its L2L, and the leaf P2L
+    (``_apply_p2l``) ends the pass."""
     if rho is None:
         rho = effective_radii(tree, cfg)
-    return _fold_levels(mult, tree, conn, cfg, m2l, rho, p2l_impl)
-
-
-def downward_with(mult, tree: Tree, conn: Connectivity, cfg: FmmConfig,
-                  m2l_impl, p2l_impl=None) -> torch.Tensor:
-    """Downward pass with a per-level M2L hook: ``m2l_impl(mult, weak,
-    centers, cfg, rho)`` returns one level's (B, 4**l, p+1) M2L
-    contribution (one kernel launch per level), folded in by the L2L
-    recursion; with no level below the root, the root's own M2L."""
-    return _fold_levels(mult, tree, conn, cfg, m2l_impl,
-                        effective_radii(tree, cfg), p2l_impl)
-
-
-def _fold_levels(mult, tree: Tree, conn: Connectivity, cfg: FmmConfig,
-                 m2l, rho, p2l_impl) -> torch.Tensor:
-    """L2L from the root down, adding each level's ``m2l(...)`` as it
-    goes, then the leaf P2L."""
-    B = mult[-1].shape[0]
-    local = torch.zeros((B, 1, cfg.p + 1), dtype=mult[-1].dtype,
-                        device=mult[-1].device)
-    for l in range(1, cfg.nlevels + 1):
-        local = l2l_level(local, tree, l, cfg, rho[l], rho[l - 1])
-        local = local + m2l(mult[l], conn.weak[l], tree.centers[l], cfg,
-                            rho[l])
-    if cfg.nlevels == 0:
-        local = local + m2l(mult[0], conn.weak[0], tree.centers[0], cfg,
-                            rho[0])
-    return _apply_p2l(local, tree, conn, cfg, rho, p2l_impl)
-
-
-def downward_fused(mult, tree: Tree, conn: Connectivity, cfg: FmmConfig,
-                   m2l_fused_impl, p2l_impl=None) -> torch.Tensor:
-    """Downward pass with the level-fused M2L hook (one launch, all
-    levels): ``m2l_fused_impl(mult, weak, centers, cfg, rho)`` returns
-    the per-level M2L contributions, which the L2L recursion then folds
-    in level by level."""
-    rho = effective_radii(tree, cfg)
-    contribs = m2l_fused_impl(mult, conn.weak, tree.centers, cfg, rho)
-    B = mult[-1].shape[0]
-    local = torch.zeros((B, 1, cfg.p + 1), dtype=mult[-1].dtype,
-                        device=mult[-1].device)
-    if cfg.nlevels == 0:
-        local = local + contribs[0]
+    levels = range(1, cfg.nlevels + 1) or (0,)
+    if m2l_fused_impl is not None:
+        m2l = m2l_fused_impl(mult, conn.weak, tree.centers, cfg, rho)
     else:
-        for l in range(1, cfg.nlevels + 1):
+        if m2l_impl is None:
+            mat = m2l_mat(cfg.p, cfg.torch_real, mult[-1].device)
+
+            def m2l_impl(m, weak, centers, c, r):
+                return m2l_level(m, weak, centers, c, mat, r)
+
+        m2l = [m2l_impl(mult[l], conn.weak[l], tree.centers[l], cfg, rho[l])
+               for l in levels]
+    B = mult[-1].shape[0]
+    local = torch.zeros((B, 1, cfg.p + 1), dtype=mult[-1].dtype,
+                        device=mult[-1].device)
+    for l, contrib in zip(levels, m2l):
+        if l > 0:
             local = l2l_level(local, tree, l, cfg, rho[l], rho[l - 1])
-            local = local + contribs[l - 1]
+        local = local + contrib
     return _apply_p2l(local, tree, conn, cfg, rho, p2l_impl)
 
 
@@ -453,29 +438,24 @@ def fmm_evaluate(plan: FmmPlan, cfg: FmmConfig, p2p_impl=None,
     """Upward/downward/evaluation on a built plan; returns (B, N) phi in
     rank (sorted) order.
 
-    ``p2p_impl(tree, conn, cfg)``, ``m2l_impl`` (one level, see
-    ``downward_with``) and ``l2p_impl(local, tree, cfg)`` replace the
-    near-field, M2L and L2P sweeps (the per-phase path; M2P stays the
-    plain sweep, as in the reference). ``m2l_fused_impl`` takes
-    precedence over ``m2l_impl``: it computes the whole downward M2L in
-    one launch (see ``downward_fused``); ``p2l_impl`` replaces the
-    downward P2L sweep; ``eval_fused_impl(local, mult_leaf, tree, conn,
-    cfg) -> (B, N)`` takes precedence over ``l2p_impl``/``p2p_impl``: it
-    computes the whole evaluation phase (L2P + M2P + P2P) in one launch.
-    Hooks left ``None`` run the plain sweeps.
+    The downward pass (``_downward``) takes each level's M2L
+    contribution from ``m2l_fused_impl`` (every level in one launch),
+    else ``m2l_impl`` (one level a call), else the plain sweep, and folds
+    them with one L2L loop; ``p2l_impl`` replaces its P2L sweep.
+    ``p2p_impl(tree, conn, cfg)`` and ``l2p_impl(local, tree, cfg)``
+    replace the near-field and L2P sweeps (the per-phase path; M2P stays
+    the plain sweep, as in the reference); ``eval_fused_impl(local,
+    mult_leaf, tree, conn, cfg) -> (B, N)`` takes precedence over them:
+    it computes the whole evaluation phase (L2P + M2P + P2P) in one
+    launch. Hooks left ``None`` run the plain sweeps.
     """
     tree, conn = plan.tree, plan.conn
     with trace.phase("fmm::upward"):
         mult = upward(tree, cfg)
 
     with trace.phase("fmm::downward"):
-        if m2l_fused_impl is not None:
-            local = downward_fused(mult, tree, conn, cfg, m2l_fused_impl,
-                                   p2l_impl)
-        elif m2l_impl is None:
-            local = downward(mult, tree, conn, cfg, p2l_impl=p2l_impl)
-        else:
-            local = downward_with(mult, tree, conn, cfg, m2l_impl, p2l_impl)
+        local = _downward(mult, tree, conn, cfg, p2l_impl=p2l_impl,
+                          m2l_impl=m2l_impl, m2l_fused_impl=m2l_fused_impl)
 
     with trace.phase("fmm::evaluation"):
         if eval_fused_impl is not None:

@@ -16,23 +16,18 @@ particles shift directly into the smaller box's local expansion) / M2P
 (the smaller box's multipole is evaluated at the larger box's points)
 instead of P2P.
 
-Two paths build the same lists:
-
-- The plain path (no hook): the CPU's and the "reference" backend's, and
-  what the kernel is held to. The strong-set recursion is sequential in
-  l; every level's weak list plus the five leaf classes stack into ONE
-  flattened ``(B, sum 4**l, 4S)`` array compacted by a single sort.
-- The hook path (``leaf_classify_impl``, the backend's topology hook):
-  one call a level, l = 1..L in order, returning the level's lists
-  already compacted and each row's count of every class
-  (``classify_level_reference`` below is its contract in plain torch;
-  ``repro_torch.kernels.topology`` holds the CUDA kernel, one launch a
-  level on the card). No sort: a box's candidates are the children
-  ``4p + k`` of its parent's strong entries ``p`` in list order; the
-  root's list is ``[0]`` and each compacted list keeps candidate order,
-  so every list ascends and a stable compaction of a row equals the
-  sorted row, clipped at the cap to the same entries. One reduction of
-  the counts gives the margins.
+One build, level by level: ``build_connectivity`` calls the backend's
+topology hook (``leaf_classify_impl``; ``repro_torch.kernels.topology``
+holds the CUDA kernel, one launch a level on the card) or, without one,
+``classify_level_reference``, the hook's contract in plain torch, once
+a level, l = 1..L in order. Each call returns the level's lists already
+compacted and each row's count of every class. No sort: a box's
+candidates are the children ``4p + k`` of its parent's strong entries
+``p`` in list order; the root's list is ``[0]`` and each compacted list
+keeps candidate order, so every list ascends and a stable compaction of
+a row equals the sorted row, clipped at the cap to the same entries.
+One reduction of the counts gives the margins. With no level below the
+root, the root's own strong list takes the swapped test alone.
 
 The predicates use ``rounding.hypot_xla``/``rounding.fma_rn`` so the lists
 are bit-identical to ``repro.core.topology.build_connectivity`` (the
@@ -40,7 +35,7 @@ reference contracts ``big + theta*small`` into one fused multiply-add).
 All tensors carry a leading problem axis B; ``margins`` is (B, 5) and
 ``overflow`` (B,). The counters ``connectivity.kernel_levels`` and
 ``connectivity.plain_levels`` add the levels each build (eager or
-captured) classified on each path.
+captured) classified by the kernel and in plain torch.
 """
 from __future__ import annotations
 
@@ -52,8 +47,6 @@ from ... import trace
 from ..config import FmmConfig
 from .rounding import fma_rn, hypot_xla
 from .tree import Tree
-
-INT_MAX = torch.iinfo(torch.int32).max
 
 #: Order of the per-class cap-margin vector (``Connectivity.margins``).
 MARGIN_CLASSES = ("strong", "weak", "p2p", "p2l", "m2p")
@@ -70,22 +63,6 @@ class Connectivity(NamedTuple):
     #                        MARGIN_CLASSES order: slots left on the fullest
     #                        row (min over levels); negative = that many
     #                        entries were dropped.
-
-
-def keyed(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Sort keys for row compaction: kept entries ascend, dropped sink."""
-    return torch.where(mask, vals, torch.full_like(vals, INT_MAX))
-
-
-def _compact(vals, mask, cap: int):
-    """Row-compact masked entries to the front, pad with -1, clip to cap.
-    Returns (compacted (B, nb, cap), margin (B,))."""
-    srt = torch.sort(keyed(vals, mask), dim=-1).values
-    count = mask.sum(dim=-1)
-    kept = srt[..., :cap]
-    out = torch.where(kept == INT_MAX, torch.full_like(kept, -1), kept)
-    margin = (cap - count.amax(dim=-1)).to(torch.int32)
-    return out, margin
 
 
 def theta_masks(cbx, cby, rb, ccx, ccy, rc, valid, theta: float):
@@ -126,25 +103,6 @@ def gather_geometry(cand, valid, centers, radii):
 
     return (take(centers.real.contiguous()), take(centers.imag.contiguous()),
             take(radii))
-
-
-def leaf_classify_reference(cand, valid, centers, radii, cfg: FmmConfig):
-    """Leaf-level classification, plain torch (the ``leaf_classify_impl``
-    hook's reference; ``repro_torch.kernels.topology`` holds the kernel).
-
-    ``cand``/``valid``: (B, 4**L, 4S) candidate boxes (children of the
-    parent's strong set). Returns five (B, 4**L, 4S) int32 *keyed* arrays
-    (strong, weak, p2p, p2l, m2p): kept entries carry the candidate id,
-    dropped entries ``INT32_MAX``.
-    """
-    cbx, cby = centers.real, centers.imag
-    ccx, ccy, rc = gather_geometry(cand, valid, centers, radii)
-    weak_m, strong_m = theta_masks(cbx, cby, radii, ccx, ccy, rc, valid,
-                                   cfg.theta)
-    p2p_m, p2l_m, m2p_m = swapped_masks(cbx, cby, radii, ccx, ccy, rc,
-                                        strong_m, cfg)
-    return (keyed(cand, strong_m), keyed(cand, weak_m), keyed(cand, p2p_m),
-            keyed(cand, p2l_m), keyed(cand, m2p_m))
 
 
 def _candidates(parent_strong, nb: int):
@@ -210,26 +168,6 @@ def classify_level_reference(parent_strong, centers, radii, cfg: FmmConfig,
     return lists, torch.stack(counts, dim=-1).to(torch.int32)
 
 
-def _batched_compact(groups):
-    """ONE sort for every (keys, cap) group: stack the same-width keyed
-    arrays along the box axis, sort once along the slot axis, slice each
-    group at its own cap. Returns (lists, margins (B,) each)."""
-    keys = torch.cat([k for k, _ in groups], dim=1)
-    srt = torch.sort(keys, dim=-1).values
-    counts = (keys != INT_MAX).sum(dim=-1)
-    lists, margins = [], []
-    row = 0
-    for k, cap in groups:
-        nb = k.shape[1]
-        kept = srt[:, row:row + nb, :cap]
-        lists.append(torch.where(kept == INT_MAX, torch.full_like(kept, -1),
-                                 kept))
-        margins.append((cap - counts[:, row:row + nb].amax(dim=-1))
-                       .to(torch.int32))
-        row += nb
-    return lists, margins
-
-
 def _overflow_of(margins: torch.Tensor) -> torch.Tensor:
     """Dropped-entry count per problem implied by (B, 5) margins."""
     return (-torch.clamp(margins.amin(dim=-1), max=0)).to(torch.int32)
@@ -242,10 +180,13 @@ def build_connectivity(tree: Tree, cfg: FmmConfig,
     ``leaf_classify_impl(parent_strong, centers, radii, cfg, leaf)``, the
     backend's topology hook (module docstring), classifies and compacts
     each level l = 1..L (on the card, the CUDA kernel of
-    ``repro_torch.kernels.topology``); ``None`` runs the plain path.
+    ``repro_torch.kernels.topology``); ``None`` calls
+    ``classify_level_reference``. The margins are the caps less the
+    fullest row of each class over every level (the root's strong list
+    holds itself, its weak list nothing).
     """
+    classify = leaf_classify_impl or classify_level_reference
     S, W = cfg.strong_cap, cfg.weak_cap
-    L = cfg.nlevels
     B = tree.z.shape[0]
     dev = tree.z.device
 
@@ -254,92 +195,31 @@ def build_connectivity(tree: Tree, cfg: FmmConfig,
     strong = [root]
     weak = [torch.full((B, 1, W), -1, dtype=torch.int32, device=dev)]
 
-    if L > 0 and leaf_classify_impl is not None:
-        return _hook_levels(leaf_classify_impl, tree, cfg, strong, weak)
-    count_levels(plain=L)
-
-    root_strong_margin = torch.full((B,), S - 1, dtype=torch.int32,
-                                    device=dev)
-    root_weak_margin = torch.full((B,), W, dtype=torch.int32, device=dev)
-
-    if L == 0:
+    if cfg.nlevels == 0:
         # Degenerate 1-box problem: the root strong list is *defined* as
         # self, so only the swapped-theta reclassification applies.
-        st = strong[0]
-        valid = st >= 0
+        count_levels()
+        valid = root >= 0
         c0, r0 = tree.centers[0], tree.radii[0]
-        ccx, ccy, rc = gather_geometry(st, valid, c0, r0)
-        p2p_m, p2l_m, m2p_m = swapped_masks(c0.real, c0.imag, r0, ccx, ccy,
-                                            rc, valid, cfg)
-        (p2p, p2l, m2p), class_margins = _batched_compact(
-            [(keyed(st, p2p_m), S), (keyed(st, p2l_m), S),
-             (keyed(st, m2p_m), S)])
-        margins = torch.stack([root_strong_margin, root_weak_margin]
-                              + class_margins, dim=-1)
-        return Connectivity(strong=tuple(strong), weak=tuple(weak),
-                            p2p=p2p, p2l=p2l, m2p=m2p,
-                            overflow=_overflow_of(margins), margins=margins)
-
-    weak_keys = []
-    strong_margins = [root_strong_margin]
-    leaf_keys = None
-    for l in range(1, L + 1):
-        cand, valid = _candidates(strong[l - 1], 4**l)
-
-        if l == L:
-            leaf_keys = leaf_classify_reference(cand, valid, tree.centers[l],
-                                                tree.radii[l], cfg)
-            weak_keys.append(leaf_keys[1])
-            continue
-
-        c = tree.centers[l]
-        ccx, ccy, rc = gather_geometry(cand, valid, c, tree.radii[l])
-        weak_mask, strong_mask = theta_masks(c.real, c.imag, tree.radii[l],
-                                             ccx, ccy, rc, valid, cfg.theta)
-        weak_keys.append(keyed(cand, weak_mask))
-        # the recursion consumes strong[l] next iteration: compact in-loop
-        s_l, s_mg = _compact(cand, strong_mask, S)
-        strong.append(s_l)
-        strong_margins.append(s_mg)
-
-    # ---- batched compaction: one sort over the flattened stack ----------
-    strong_key, _, p2p_key, p2l_key, m2p_key = leaf_keys
-    groups = ([(k, W) for k in weak_keys]
-              + [(strong_key, S), (p2p_key, S), (p2l_key, S), (m2p_key, S)])
-    lists, group_margins = _batched_compact(groups)
-    weak_lists, (strong_L, p2p, p2l, m2p) = lists[:L], lists[L:]
-    weak_margins, tail = group_margins[:L], group_margins[L:]
-    strong.append(strong_L)
-    weak.extend(weak_lists)
-
-    margins = torch.stack([
-        torch.stack(strong_margins + [tail[0]], dim=-1).amin(dim=-1),
-        torch.stack([root_weak_margin] + weak_margins, dim=-1).amin(dim=-1),
-        tail[1], tail[2], tail[3],
-    ], dim=-1)
-    return Connectivity(strong=tuple(strong), weak=tuple(weak),
-                        p2p=p2p, p2l=p2l, m2p=m2p,
-                        overflow=_overflow_of(margins), margins=margins)
-
-
-def _hook_levels(classify, tree: Tree, cfg: FmmConfig, strong: list,
-                 weak: list) -> Connectivity:
-    """Levels 1..L through the per-level hook, each fed its parent's
-    compacted strong lists; the margins are the caps less the fullest
-    row of each class over every level (the root's strong list holds
-    itself, its weak list nothing)."""
-    counts = []
-    for l in range(1, cfg.nlevels + 1):
-        lists, cnt = classify(strong[-1], tree.centers[l], tree.radii[l],
-                              cfg, l == cfg.nlevels)
-        strong.append(lists[0])
-        weak.append(lists[1])
-        counts.append(cnt)
-    p2p, p2l, m2p = lists[2:]
+        ccx, ccy, rc = gather_geometry(root, valid, c0, r0)
+        masks = (valid, torch.zeros_like(valid)) + swapped_masks(
+            c0.real, c0.imag, r0, ccx, ccy, rc, valid, cfg)
+        p2p, p2l, m2p = (_stream_compact(root, m, S) for m in masks[2:])
+        counts = [torch.stack([m.sum(dim=-1) for m in masks], dim=-1)
+                  .to(torch.int32)]
+    else:
+        counts = []
+        for l in range(1, cfg.nlevels + 1):
+            lists, cnt = classify(strong[-1], tree.centers[l],
+                                  tree.radii[l], cfg, l == cfg.nlevels)
+            strong.append(lists[0])
+            weak.append(lists[1])
+            counts.append(cnt)
+        p2p, p2l, m2p = lists[2:]
     most = torch.cat(counts, dim=1).amax(dim=1)               # (B, 5)
     most[:, 0].clamp_(min=1)
-    caps = torch.full_like(most, cfg.strong_cap)
-    caps[:, 1] = cfg.weak_cap
+    caps = torch.full_like(most, S)
+    caps[:, 1] = W
     margins = caps - most
     return Connectivity(strong=tuple(strong), weak=tuple(weak),
                         p2p=p2p, p2l=p2l, m2p=m2p,

@@ -19,17 +19,11 @@ the m2p list, phi written once. Operands, with a leading problem axis B:
 
 Result: (outr, outi), (B, nb, n) — the evaluation-phase potential at the
 dense leaf slots.
-
-Each f64 launch of the log branch (its pair logarithm from
-``csrc/clog.cuh``) enqueued or recorded into a CUDA graph adds one to the
-counter ``eval_fused.log_launches`` (``repro_torch.trace``); a replay
-adds none.
 """
 from __future__ import annotations
 
 import torch
 
-from ... import trace
 from ...core.fmm import rows
 from ..build import CudaLibrary, I, P, check_tensors, on_cpu
 from ..common import l2p_horner, p2p_slots
@@ -104,6 +98,4 @@ def eval_fused_cuda(p2p_lists, m2p_lists, zr, zi, qr, qi, rk, tr, ti, br,
     LIB.launch(f"eval_fused_{sfx}", p2p_lists, S, m2p_lists, Sm, zr, zi, qr,
                qi, rk, tr, ti, br, bi, ar, ai, mcr, mci, mrho, B, nb, n,
                p + 1, int(kernel == "log"), outr, outi)
-    if kernel == "log" and sfx == "f64":
-        trace.count("eval_fused.log_launches")
     return outr, outi

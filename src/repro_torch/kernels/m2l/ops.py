@@ -5,7 +5,9 @@ share one kernel and one operand staging (``m2l_planes``):
 levels of the downward pass into one (B, sum 4^l, W) box axis with static
 per-level offsets and issues exactly one kernel launch for the whole
 downward M2L of B problems. ``m2l_level_apply`` is the per-level
-``m2l_impl`` hook of ``core.fmm.downward_with``: one launch per level.
+``m2l_impl`` hook of ``core.fmm.fmm_evaluate``: one launch per level.
+Either way ``fmm_evaluate`` folds the per-level contributions into the
+leaf locals with one L2L loop.
 """
 from __future__ import annotations
 
@@ -63,7 +65,7 @@ def m2l_operands(mult, weak, centers, cfg: FmmConfig, rho):
 
 
 def m2l_level_apply(mult, weak, centers, cfg: FmmConfig, rho):
-    """Drop-in ``m2l_impl`` for ``core.fmm.downward_with``: the M2L of
+    """Drop-in ``m2l_impl`` for ``core.fmm.fmm_evaluate``: the M2L of
     one level's (B, 4**l) boxes, ONE kernel launch. Returns the (B, 4**l,
     p+1) normalized local contributions."""
     outr, outi = m2l_cuda(*m2l_planes(mult, weak, centers, cfg, rho))
@@ -71,7 +73,7 @@ def m2l_level_apply(mult, weak, centers, cfg: FmmConfig, rho):
 
 
 def m2l_fused_apply(mult, weak, centers, cfg: FmmConfig, rho):
-    """Drop-in ``m2l_fused_impl`` for ``core.fmm.downward_fused``: ONE
+    """Drop-in ``m2l_fused_impl`` for ``core.fmm.fmm_evaluate``: ONE
     kernel launch for the whole downward M2L of B problems. Returns the
     per-level (B, 4**l, p+1) normalized local contributions."""
     args, offs = m2l_operands(mult, weak, centers, cfg, rho)

@@ -3,7 +3,8 @@ kernel + its plain torch version.
 
 The kernel (``csrc/classify.cu``) replaces the reference's Pallas kernel
 ``repro/kernels/topology/classify.py:_classify_pallas`` and, on the
-card, every plain-torch theta test and sort of ``build_connectivity``.
+card, the plain-torch theta tests and compaction of
+``build_connectivity``.
 ``level_classify_cuda`` is the backend's topology hook (the
 ``leaf_classify_impl`` of ``build_connectivity``), called once a level,
 l = 1..L in order: the parent level's compacted (B, 4**(l-1), S) strong
@@ -14,11 +15,11 @@ with the (B, 4**l, 5) count of each class a row before clipping.
 The card compacts each row in the kernel, with no sort: a box's
 candidates are the children of its parent's strong entries in list
 order, which ascend, so keeping candidate order gives the sorted lists
-(``csrc/classify.cu``). The plain version
-(``connectivity.classify_level_reference``) compacts the same way in
-torch; the sorted plain path of ``build_connectivity`` (no hook) stays
-the CPU's and the "reference" backend's, and is what the kernel's lists
-are held to. All of them compute the reference's roundings
+(``csrc/classify.cu``). The plain version, ``level_classify_plain``, is
+``connectivity.classify_level_reference``: it compacts the same way in
+torch, is what ``build_connectivity`` calls with no hook (the
+"reference" backend's build), and is what the kernel's lists are held
+to. Both compute the reference's roundings
 (``core/topology/rounding.py``), so they agree bit for bit.
 """
 from __future__ import annotations
@@ -37,12 +38,9 @@ LIB = CudaLibrary("classify", {
     for s in ("f32", "f64")})
 
 
-def level_classify_plain(parent_strong, centers, radii, cfg: FmmConfig,
-                         leaf: bool):
-    """Plain torch version: ``connectivity.classify_level_reference``,
-    the same predicates and the same compaction the kernel computes."""
-    return classify_level_reference(parent_strong, centers, radii, cfg,
-                                    leaf)
+#: Plain torch version: the same predicates and the same compaction the
+#: kernel computes.
+level_classify_plain = classify_level_reference
 
 
 def level_classify_cuda(parent_strong, centers, radii, cfg: FmmConfig,

@@ -5,7 +5,9 @@ swapped into. A ``Backend`` bundles one implementation per hook; the
 registry maps names to backends:
 
   "reference"  plain torch sweeps of ``repro_torch.core.fmm`` (every hook
-               None -> the core path runs its own sweep)
+               None -> the core path runs its own sweep; the topology's
+               is ``classify_level_reference``, once a level, the same
+               plain version the "cuda" hook runs on CPU tensors)
   "cuda"       the hand-written CUDA kernels of ``repro_torch.kernels``,
                one per hook: classify (one launch a tree level),
                level-fused M2L, P2L and the

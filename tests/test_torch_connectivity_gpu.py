@@ -1,11 +1,12 @@
-"""PyTorch port on the CUDA card: the connectivity's kernel path (the
-"cuda" backend's topology hook, one classify launch a level that
-classifies and compacts the level's lists, no sort) against the plain
-path (theta tests in torch, compaction by sort) on the same tree, bit for
-bit: every level's strong and weak lists, the leaf p2p / p2l / m2p
-lists, the margins and the overflow. Also that the kept entries of every
-compacted row ascend (the invariant the sort-free compaction rests on),
-and the launches and level counters of a build.
+"""PyTorch port on the CUDA card: the connectivity's kernel (the "cuda"
+backend's topology hook, one classify launch a level that classifies and
+compacts the level's lists, no sort) against its plain twin
+(``classify_level_reference``, the build with no hook: theta tests and
+cumsum compaction in torch, on the card) on the same tree, bit for bit:
+every level's strong and weak lists, the leaf p2p / p2l / m2p lists, the
+margins and the overflow. Also that the kept entries of every compacted
+row ascend (the invariant the sort-free compaction rests on), and the
+launches and level counters of a build.
 
 Cases: the CPU parity cases of ``test_torch_topology.py`` (an overflowing
 strong cap, no swapped test, theta 0.3, nlevels 0) and nlevels 1; the
@@ -93,9 +94,9 @@ def _fields(conn):
 
 
 def _kernel_equals_plain(tree, cfg):
-    """Build both paths; assert every field bit for bit and that each
-    compacted row keeps its entries first, ascending. Returns the
-    kernel path's lists."""
+    """Build with the kernel and with its plain twin; assert every field
+    bit for bit and that each compacted row keeps its entries first,
+    ascending. Returns the kernel's lists."""
     plain = build_connectivity(tree, cfg)
     kern = build_connectivity(tree, cfg, leaf_classify_impl=level_classify_cuda)
     torch.cuda.synchronize()
@@ -112,6 +113,8 @@ def _kernel_equals_plain(tree, cfg):
 
 @pytest.mark.parametrize("n,levels,dist,dt,kw", CONN_CASES)
 def test_kernel_path_equals_plain_path(cuda, n, levels, dist, dt, kw):
+    """The kernel against its plain twin at the CPU parity cases (at
+    nlevels 0 neither runs: the root's lists are built alike)."""
     cfg = FmmConfig(n=n, nlevels=levels, p=5, dtype=dt, **kw)
     tree = _tree(cfg, [dist], cuda)
     conn = _kernel_equals_plain(tree, cfg)
@@ -121,6 +124,8 @@ def test_kernel_path_equals_plain_path(cuda, n, levels, dist, dt, kw):
 
 @pytest.mark.parametrize("cell", sorted(CELLS))
 def test_kernel_path_equals_plain_path_at_the_cells(cuda, cell):
+    """The kernel against its plain twin on a cell's 2^20 inputs at its
+    caps, with no list overflowing."""
     from repro_torch.configs import fmm_config
     dt, S, W = CELLS[cell]
     base = fmm_config(N_CELL, dtype=dt)

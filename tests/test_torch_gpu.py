@@ -329,31 +329,34 @@ def test_log_branch_keeps_a_coincident_pair_non_finite(cuda, which):
 
 
 def test_log_branch_replays_bitwise_and_counts_its_launches(cuda):
-    """``apply`` of the f64 log config: the eager first call and the
-    capture each add one to ``eval_fused.log_launches``, the replays
-    none, and every call is bitwise the eager one; the f32 log branch and
-    the harmonic one add none."""
+    """``apply`` of the f64 log config: its program launches the fused
+    evaluation (``eval_fused_f64``, the log branch) once in the eager
+    first call and records it once in the capture, a replay launches
+    nothing, and every call is bitwise the eager one; the f32 log and
+    the f64 harmonic solvers leave the log solver's programs as they
+    were."""
     cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype="f64", kernel="log")
     z, q = particles("layer", cfg.n, 7, device=cuda)
     solver = FmmSolver(cfg, "cuda")
-    trace.reset()
 
-    def count():
-        return trace.snapshot()["counters"].get("eval_fused.log_launches", 0)
+    def state():
+        return [(dict(p.launches), dict(p.recorded), p.calls, p.replays)
+                for p in solver.programs().values()]
 
     ref = solver.apply(z, q)
-    seen = [count()]
+    (prog,) = solver.programs().values()
+    assert prog.launches["eval_fused"] == 1 and prog.recorded == {}
     for _ in range(3):                       # capture + replay, 2 replays
         assert torch.equal(solver.apply(z, q), ref)
-        seen.append(count())
-    assert seen == [1, 2, 2, 2]
+    assert prog.launches["eval_fused"] == 1
+    assert prog.recorded["eval_fused"] == 1
     assert [p.replays for p in solver.programs().values()] == [3]
+    before = state()
     for other in (dataclasses.replace(cfg, dtype="f32"),
                   dataclasses.replace(cfg, kernel="harmonic")):
         FmmSolver(other, "cuda").apply(z, q)
-    assert count() == 2
+    assert state() == before
     solver._release_executables()
-    trace.reset()
 
 
 @pytest.mark.parametrize("which,cap", [("eval_fused", 256), ("p2p", 512)])

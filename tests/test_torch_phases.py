@@ -232,15 +232,25 @@ def test_per_phase_solver_matches_pallas_hooks(dist, n, levels, p, kernel,
 
 
 @pytest.mark.parametrize("levels", [0, 2])
-def test_downward_with_matches_downward(levels):
+def test_per_level_m2l_hook_fold_matches_downward(levels):
+    """``fmm_evaluate`` with the per-level M2L hook (one call a level,
+    folded by its one L2L loop) hands the evaluation the plain
+    ``downward``'s leaf locals."""
     _, cfg = configs(n=256 if levels else 40, nlevels=levels, p=8,
                      dtype="f64", strong_cap=32, weak_cap=64)
     z, q = inputs("normal", cfg.n, seed=9)
     plan = F.fmm_build(torch.from_numpy(z)[None], torch.from_numpy(q)[None],
                        cfg)
-    mult = F.upward(plan.tree, cfg)
-    ref = F.downward(mult, plan.tree, plan.conn, cfg)
-    got = F.downward_with(mult, plan.tree, plan.conn, cfg, m2l_level_apply)
+    ref = F.downward(F.upward(plan.tree, cfg), plan.tree, plan.conn, cfg)
+    seen = {}
+
+    def keep_local(local, mult_leaf, tree, conn, c):
+        seen["local"] = local
+        return torch.zeros_like(tree.z)
+
+    F.fmm_evaluate(plan, cfg, m2l_impl=m2l_level_apply,
+                   eval_fused_impl=keep_local)
+    got = seen["local"]
     assert got.shape == ref.shape == (1, 4**levels, cfg.p + 1)
     assert rel(got, ref) <= TOL
 

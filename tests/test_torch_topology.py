@@ -1,9 +1,9 @@
 """PyTorch port, topology: the single-sort tree and the theta
-connectivity are bit-identical to the JAX reference, on the plain path
-and through the "cuda" backend's per-level classify hook (its plain
-version on the CPU); that hook's leaf level is bit-identical to the
-reference's Pallas kernel in interpret mode; a build counts its levels
-by path."""
+connectivity are bit-identical to the JAX reference, with no hook (the
+plain per-level classifier) and through the "cuda" backend's per-level
+classify hook (its plain version on the CPU); that hook's leaf level is
+bit-identical to the reference's Pallas kernel in interpret mode; a
+build counts its levels by path."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -16,6 +16,9 @@ from repro_torch import trace
 from repro_torch.kernels import level_classify_cuda, level_classify_plain
 
 from _torch_parity import configs, inputs, jax_plan, t
+
+# the Pallas kernel's key of a dropped entry
+INT_MAX = np.iinfo(np.int32).max
 
 TREE_CASES = [(1024, 3, "uniform", "f64"), (4096, 3, "normal", "f32"),
               (4096, 3, "layer", "f64"), (777, 2, "layer", "f32"),
@@ -98,8 +101,9 @@ CONN_CASES = [
 
 @pytest.mark.parametrize("n,levels,dist,dt,kw", CONN_CASES)
 def test_connectivity_bit_identical(n, levels, dist, dt, kw):
-    """Every list, margin and overflow equal to the reference. A
-    differing entry is listed (none is allowed)."""
+    """With no hook (``classify_level_reference`` a level; at nlevels 0
+    the root's swapped test): every list, margin and overflow equal to
+    the reference. A differing entry is listed (none is allowed)."""
     _, tcfg, jp, tree = _both(n, levels, dist, dt, **kw)
     conn = build_connectivity(tree, tcfg)
     jc = jp.conn
@@ -166,8 +170,8 @@ def test_leaf_classify_matches_pallas_interpret(dist, dt, kw):
     """The port's classify wrapper on CPU tensors (its plain version) at
     the leaf level is bit-identical to the reference's Pallas kernel
     (interpret mode) on the same candidates: each class's list is the
-    Pallas kernel's keyed row sorted and clipped at its cap, and each
-    row's count its kept entries."""
+    Pallas kernel's row of sort keys, sorted and clipped at its cap, and
+    each row's count its kept entries."""
     n, levels = 1024, 2
     jcfg, tcfg = configs(n=n, nlevels=levels, p=5, dtype=dt, strong_cap=16,
                          **kw)
@@ -201,9 +205,9 @@ def test_leaf_classify_matches_pallas_interpret(dist, dt, kw):
         keys = np.asarray(keys)
         kept = np.sort(keys, axis=-1)[:, :cap]
         np.testing.assert_array_equal(
-            a[0].numpy(), np.where(kept == conn_mod.INT_MAX, -1, kept))
+            a[0].numpy(), np.where(kept == INT_MAX, -1, kept))
         np.testing.assert_array_equal(counts[0, :, k].numpy(),
-                                      (keys != conn_mod.INT_MAX).sum(-1))
+                                      (keys != INT_MAX).sum(-1))
 
 
 @pytest.mark.parametrize("n,levels,dist,dt,kw", CONN_CASES)
@@ -231,7 +235,7 @@ def test_classify_hook_path_bit_identical(n, levels, dist, dt, kw):
 
 
 def test_a_cpu_build_counts_its_levels_as_plain():
-    """A build on the CPU (the plain path, no hook) adds its levels to
+    """A build on the CPU with no hook adds its levels to
     ``connectivity.plain_levels`` and none to ``.kernel_levels``."""
     _, tcfg = configs(n=1024, nlevels=3, p=5, dtype="f64")
     z, q = inputs("normal", 1024, 0)
