@@ -6,7 +6,7 @@
 Runs top to bottom and exits nonzero on the first failure:
 
 1. prints the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. builds the seven CUDA kernels from ``src/repro_torch/kernels/csrc``
+2. builds the eight CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one ``nvcc`` per source, all started together) and prints each
    kernel's registers, shared memory and spills, and for the direct
    N-body kernel its targets a thread (K) and the SASS instructions a
@@ -17,6 +17,8 @@ Runs top to bottom and exits nonzero on the first failure:
    its plain torch version on the same inputs (classify: the kernel
    path's connectivity, one launch a level, bit-identical to the plain
    path's;
+   the upward pass (its one or two launches) against the plain
+   ``core.fmm.upward`` over every box of every level;
    the others per element within F64_TOL in f64 and F32_KERNEL_TOL in
    f32; the direct N-body sum on N_SAMPLE of the particles as targets
    against all 2^20 sources, where the kernel splits the sources to
@@ -234,7 +236,7 @@ F64_TOL = 1e-10
 # level is the highest. A dropped or wrong term moves the elements it
 # touches by far more than any of these limits.
 F32_KERNEL_TOL = {"m2l": 2e-5, "p2l": 1e-4, "eval_fused": 1e-5, "p2p": 1e-5,
-                  "l2p": 1e-5, "nbody": 1e-4}
+                  "l2p": 1e-5, "nbody": 1e-4, "upward": 1e-5}
 # The direct N-body sum of a target runs over all 2^20 sources, whose
 # terms cancel: phi is far smaller than the sum of the terms' magnitudes
 # S_i = sum_j |q_j| / |x_j - y_i|, and an f32 sum's rounding error grows
@@ -304,7 +306,7 @@ SWEEP = [1 << k for k in range(9, 21)]
 # of a complex log term (log and atan2, product, sum) and those a
 # near-field pair adds over the harmonic pair's (work_of)
 LOG_CAPS = (256, 1024)
-LOG_KERNELS = ("m2l", "p2l", "eval_fused")
+LOG_KERNELS = ("m2l", "p2l", "eval_fused", "upward")
 LOG_TERM = 14
 LOG_PAIR = 2
 # accuracy bounds of the JAX reference's own tests
@@ -335,14 +337,21 @@ KERNELS = {
             "src/repro/kernels/l2p/l2p.py:33"),
     "nbody": ("src/repro_torch/kernels/csrc/nbody.cu",
               "src/repro/kernels/nbody/nbody.py:40"),
+    # no Pallas kernel: the reference's upward pass is plain jnp
+    "upward": ("src/repro_torch/kernels/csrc/upward.cu",
+               "none (src/repro/core/fmm.py:143, plain jnp)"),
 }
 
 
 def want_counts(cfg, **kw) -> dict:
     """Launches per kernel of one main-path apply at ``cfg`` (classify
-    once a tree level), with ``kw`` changed."""
-    want = {"classify": cfg.nlevels, "m2l": 1, "p2l": 1, "eval_fused": 1,
-            "p2p": 0, "l2p": 0, "nbody": 0}
+    once a tree level, the upward pass in ``upward_launches``), with
+    ``kw`` changed."""
+    from repro_torch.kernels import upward_launches
+
+    want = {"classify": cfg.nlevels, "upward": upward_launches(cfg.nlevels),
+            "m2l": 1, "p2l": 1, "eval_fused": 1, "p2p": 0, "l2p": 0,
+            "nbody": 0}
     want.update(kw)
     return want
 
@@ -660,6 +669,9 @@ def time_cuda(fn, reps: int, torch, warmup: int = 2) -> float:
 
 def launches_of(name: str, cfg) -> int:
     """Launches one call of kernel ``name``'s wrapper makes at ``cfg``."""
+    if name == "upward":
+        from repro_torch.kernels import upward_launches
+        return upward_launches(cfg.nlevels)
     return cfg.nlevels if name == "classify" else 1
 
 
@@ -743,6 +755,24 @@ def work_of(name: str, args, kwargs, dt: str) -> tuple[float, float, float]:
 def _work_of(name: str, args, kwargs, dt: str) -> tuple[float, float, float]:
     """``work_of`` of the harmonic kernel."""
     sz = 8 if dt == "f64" else 4
+    if name == "upward":
+        # P2M: w = (x - z0)/rho and q/rho (4 operations), then p complex
+        # products and sums a particle; M2M a child box: p ratio powers
+        # and scalings (3p), the Pascal pass (p(p-1)/2 complex
+        # multiply-adds), the log-source correction (16p) and its share
+        # of the parent's sum (2(p+1)). z and q read once, the leaf
+        # bounds of the static layout, every box's center and radius,
+        # every box's p+1 coefficients written once.
+        tree, c, _ = args
+        p, B = c.p, tree.z.shape[0]
+        leaves = tree.radii[-1].shape[-1]
+        boxes = sum(x.numel() for x in tree.radii)
+        children = boxes - B
+        flops = (tree.z.numel() * (4 + 8 * p)
+                 + children * (3 * p + 4 * p * (p - 1) + 16 * p + 2 * (p + 1)))
+        nbytes = (4 * tree.z.numel() * sz + 4 * (leaves + 1)
+                  + 3 * boxes * sz + 2 * boxes * (p + 1) * sz)
+        return float(flops), float(nbytes), 0.0
     if name == "classify":
         # one launch a level: the parent level's strong lists and the
         # level's centres and radii read; the strong and weak lists, the
@@ -823,7 +853,7 @@ def capture(cfg, z, q, torch):
     operands (positional, keyword; "m2l_levels": the M2L operands of each
     level, as the per-phase path stages them) and the occupied list
     entries."""
-    from repro_torch.core.fmm import fmm_build, fmm_evaluate
+    from repro_torch.core.fmm import effective_radii, fmm_build, fmm_evaluate
     from repro_torch.core.topology import MARGIN_CLASSES
     from repro_torch.kernels import (eval_fused_apply, eval_operands,
                                      fused_levels, l2p_operands,
@@ -861,6 +891,7 @@ def capture(cfg, z, q, torch):
                            plan.conn.margins.min(dim=0).values.tolist()))
         cfg = grow_caps(cfg, margins)
     cap["classify"] = ((plan.tree, cfg), {})
+    cap["upward"] = ((plan.tree, cfg, effective_radii(plan.tree, cfg)), {})
     fmm_evaluate(plan, cfg, m2l_fused_impl=m2l_rec, p2l_impl=p2l_rec,
                  eval_fused_impl=eval_rec)
     # the direct N-body sum: N_SAMPLE of the particles (in rank order) as
@@ -888,6 +919,8 @@ def capture(cfg, z, q, torch):
 def kernel_impls(cfg) -> dict:
     """Per kernel, (its wrapper, its plain version), each called as
     ``f(args, kwargs)`` on the operands that ``capture`` records."""
+    from repro_torch import kernels
+    from repro_torch.core.fmm import upward
     from repro_torch.core.topology import build_connectivity
     from repro_torch.kernels import (eval_fused_cuda, eval_fused_plain,
                                      l2p_cuda, l2p_plain, level_classify_cuda,
@@ -895,7 +928,7 @@ def kernel_impls(cfg) -> dict:
                                      nbody_plain, p2l_cuda, p2l_plain,
                                      p2p_cuda, p2p_plain)
 
-    return {
+    impls = {
         # a whole connectivity build (operands: the tree and its config):
         # the kernel path against the plain path, every list, the margins
         # and the overflow
@@ -912,7 +945,23 @@ def kernel_impls(cfg) -> dict:
         "l2p": (lambda a, k: l2p_cuda(*a, **k),
                 lambda a, k: l2p_plain(*a, **k)),
         "nbody": (lambda a, k: nbody_cuda(*a), lambda a, k: nbody_plain(*a)),
+        # the whole pass (operands: the tree, its config and the radii):
+        # every box of every level, (real, imag)
+        "upward": (lambda a, k: upward_planes(kernels.upward_cuda(*a)),
+                   lambda a, k: upward_planes(upward(*a))),
     }
+    if not hasattr(kernels, "upward_cuda"):  # a tree from before the kernel
+        del impls["upward"]
+    return impls
+
+
+def upward_planes(levels) -> tuple:
+    """Per-level (B, 4**l, P) multipoles -> the (real, imag) planes of
+    every box, levels root first."""
+    import torch
+
+    flat = torch.cat(levels, dim=1)
+    return flat.real.contiguous(), flat.imag.contiguous()
 
 
 def magnitude_sum(tzr, tzi, szr, szi, qr, qi, torch) -> "torch.Tensor":
@@ -932,10 +981,25 @@ def magnitude_sum(tzr, tzi, szr, szi, qr, qi, torch) -> "torch.Tensor":
 
 
 def upcast(args, kwargs, torch):
-    """The same operands with every f32 tensor widened to f64."""
+    """The same operands with every f32 (complex64) tensor widened to f64
+    (complex128), inside tuples and lists too, and a config's dtype
+    f64."""
+    import dataclasses
+
+    from repro_torch.core.config import FmmConfig
+
+    wide = {torch.float32: torch.float64, torch.complex64: torch.complex128}
+
     def up(a):
-        return (a.double() if isinstance(a, torch.Tensor)
-                and a.dtype == torch.float32 else a)
+        if isinstance(a, torch.Tensor):
+            return a.to(wide.get(a.dtype, a.dtype))
+        if isinstance(a, FmmConfig):
+            return dataclasses.replace(a, dtype="f64")
+        if isinstance(a, tuple) and hasattr(a, "_fields"):
+            return type(a)(*map(up, a))
+        if isinstance(a, (tuple, list)):
+            return type(a)(map(up, a))
+        return a
     return tuple(up(a) for a in args), {k: up(v) for k, v in kwargs.items()}
 
 
@@ -964,7 +1028,7 @@ def kernel_phase(dt: str, torch, kernel: str = "harmonic") -> list[dict]:
     dists, timed = (("layer",), "layer") if log else (DISTS, "uniform")
     entries_of = {"classify": ("pairs",), "m2l": ("weak",), "p2l": ("p2l",),
                   "eval_fused": ("p2p", "m2p"), "p2p": ("p2p",),
-                  "l2p": (), "nbody": ("pairs_nbody",)}
+                  "l2p": (), "nbody": ("pairs_nbody",), "upward": ()}
     rows = {}
     for dist in dists:
         z, q = particles(dist, N, SEED)
@@ -1348,9 +1412,10 @@ def graphs_phase(dt: str, main: dict, torch) -> None:
 def log_phase(torch) -> list[dict]:
     """The log kernel (G = q log(z - x)) at the shapes of the held-plan
     matvec (``log_config``: layer particles at N, f64, caps LOG_CAPS):
-    (a) ``kernel_phase``'s gates and times on M2L, P2L and the fused
-    evaluation in their log branches; (b) ``apply_charges`` on a held
-    plan of those particles on a fresh solver, as the graphs phase runs
+    (a) ``kernel_phase``'s gates and times on M2L, P2L, the fused
+    evaluation and the upward pass in their log branches; (b)
+    ``apply_charges`` on a held plan of those particles on a fresh
+    solver, as the graphs phase runs
     an entry point (``entry_phase``: the main-path kernels but classify
     once a call, every call bitwise its eager pipeline); Re phi against
     the f64 direct log sum at N_SAMPLE targets (ACC_BOUND) and against
@@ -1556,7 +1621,7 @@ def seam_phase(dt: str, main: dict, torch) -> None:
     cfg, z, q = m["cfg"], m["z"], m["q"]
     zero = {k: 0 for k in KERNELS}
     want_refresh = dict(zero, classify=cfg.nlevels)
-    want_plan = dict(zero, m2l=1, p2l=1, eval_fused=1)
+    want_plan = dict(want_counts(cfg), classify=0)
     solver = FmmSolver(cfg)                  # fresh: its own trace_counts
     times = {"refresh": [], "apply_plan": [], "apply": []}
 
@@ -2286,7 +2351,7 @@ def kernel_runs(calls) -> dict:
 
 
 def main_kernels_ran(runs: dict, tag: str) -> None:
-    want = ("classify", "m2l", "p2l", "eval_fused")
+    want = ("classify", "upward", "m2l", "p2l", "eval_fused")
     check(all(runs[k] > 0 for k in want),
           f"{tag}: main-path kernels run {runs} (want each of {want})")
 
@@ -3139,7 +3204,7 @@ def main() -> int:
               f"{[round(1e3 * m['first_s'], 1) for m in served[dt].values()]}",
               flush=True)
         paths[dt] = {k: totals[k] for k in
-                     ("classify", "m2l", "p2l", "eval_fused")}
+                     ("classify", "upward", "m2l", "p2l", "eval_fused")}
     memory_line("main", torch)
     register_phases(torch)
     for dt in ("f32", "f64"):

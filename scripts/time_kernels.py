@@ -23,7 +23,8 @@ registers, SASS instructions a pair in its pair loop, and the SM clock
 and power that ``nvidia-smi`` sampled during the all-pairs launches
 (``--only`` times the kernels named; "nbody_all" is the all-pairs
 launch, "m2l_levels" the per-phase path's M2L, one launch a level,
-timed and digested as one). ``--kernel log`` times the kernels with an
+timed and digested as one, "upward" the upward pass's launches, timed
+and digested as one). ``--kernel log`` times the kernels with an
 f64 log branch (the fused evaluation, P2P, M2L and P2L) on the log leg's
 plan instead (``chip_smoke.log_config``: layer particles, G = log, caps
 256/1024). ``--sass`` also prints one JSON line of the fused evaluation's

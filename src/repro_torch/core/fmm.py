@@ -12,11 +12,12 @@ pass — and each kernel one launch — for the whole batch. The sweeps here
 are plain torch: they are the "reference" backend and the twins the
 kernels of ``repro_torch.kernels`` are checked against. ``fmm_build``
 and ``fmm_evaluate`` take the hooks kernels are swapped into: the main
-path's (``leaf_classify_impl``, ``m2l_fused_impl``, ``p2l_impl``,
-``eval_fused_impl``) and the per-phase path's (``m2l_impl`` one level at
-a time, ``l2p_impl``, ``p2p_impl``) — the reference's hooks, minus the
-static leaf index argument, which the port reads from its cached
-``leaf_layout``.
+path's (``leaf_classify_impl``, ``upward_impl``, ``m2l_fused_impl``,
+``p2l_impl``, ``eval_fused_impl``) and the per-phase path's
+(``m2l_impl`` one level at a time, ``l2p_impl``, ``p2p_impl``) — the
+reference's hooks, minus the static leaf index argument, which the port
+reads from its cached ``leaf_layout``, plus ``upward_impl``, which the
+reference does not have (its upward pass is plain jnp).
 
 Sums over a leaf's particles run over dense (B, 4**L, n_max) planes of
 the static ``leaf_particle_index`` along the last axis, and results go
@@ -434,9 +435,15 @@ def fmm_build(z: torch.Tensor, q: torch.Tensor, cfg: FmmConfig,
 
 def fmm_evaluate(plan: FmmPlan, cfg: FmmConfig, p2p_impl=None,
                  m2l_impl=None, l2p_impl=None, m2l_fused_impl=None,
-                 p2l_impl=None, eval_fused_impl=None) -> torch.Tensor:
+                 p2l_impl=None, eval_fused_impl=None,
+                 upward_impl=None) -> torch.Tensor:
     """Upward/downward/evaluation on a built plan; returns (B, N) phi in
     rank (sorted) order.
+
+    ``upward_impl(tree, cfg, rho)``, given the per-level
+    ``effective_radii``, returns the per-level (B, 4**l, p+1)
+    multipoles in place of the plain ``upward`` (the kernel: the whole
+    pass in at most two launches).
 
     The downward pass (``_downward``) takes each level's M2L
     contribution from ``m2l_fused_impl`` (every level in one launch),
@@ -451,7 +458,8 @@ def fmm_evaluate(plan: FmmPlan, cfg: FmmConfig, p2p_impl=None,
     """
     tree, conn = plan.tree, plan.conn
     with trace.phase("fmm::upward"):
-        mult = upward(tree, cfg)
+        mult = (upward(tree, cfg) if upward_impl is None
+                else upward_impl(tree, cfg, effective_radii(tree, cfg)))
 
     with trace.phase("fmm::downward"):
         local = _downward(mult, tree, conn, cfg, p2l_impl=p2l_impl,

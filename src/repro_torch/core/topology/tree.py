@@ -245,6 +245,8 @@ class LeafLayout:
     ranks: torch.Tensor      # (4**L, n_max) int32 rank per slot, -1 padded
     slot_of_rank: torch.Tensor  # (N,) int64 flat dense slot of each rank
     lid: torch.Tensor        # (N,) int64 leaf box owning each rank
+    bounds: torch.Tensor     # (4**L + 1,) int32 first rank of each leaf,
+    #                          then N: leaf b owns [bounds[b], bounds[b+1])
 
 
 _LAYOUT_BUILDS = [0]
@@ -274,7 +276,9 @@ def leaf_layout(n: int, nlevels: int, device: torch.device) -> LeafLayout:
                       valid=torch.as_tensor(valid, device=device),
                       ranks=torch.as_tensor(idx, device=device),
                       slot_of_rank=_const(slot_of_rank, device),
-                      lid=_const(leaf_ids(cfg), device))
+                      lid=_const(leaf_ids(cfg), device),
+                      bounds=torch.as_tensor(level_bounds(cfg)[-1].astype(
+                          np.int32), device=device))
 
 
 def leaf_particle_index(cfg: FmmConfig) -> np.ndarray:

@@ -9,6 +9,8 @@
   l2p/       local-expansion evaluation at the particles (per-phase path)
   p2p/       near-field direct sum over the leaf lists (per-phase path)
   nbody/     direct all-pairs sum, the O(N^2) baseline (``nbody_direct``)
+  upward/    the whole upward pass (P2M and every M2M level), at most
+             two launches
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors; ``build.launch_counts()`` reports how many
@@ -25,6 +27,7 @@ from .m2l import (fused_levels, m2l_cuda, m2l_fused_apply, m2l_level_apply,
 from .nbody import nbody_cuda, nbody_direct, nbody_plain, nbody_plan
 from .p2p import p2p_apply, p2p_cuda, p2p_operands, p2p_plain
 from .topology import level_classify_cuda, level_classify_plain
+from .upward import upward_cuda, upward_launches, upward_plain
 
 __all__ = [
     "common", "build_all", "launch_counts", "reset_launch_counts",
@@ -36,4 +39,5 @@ __all__ = [
     "nbody_cuda", "nbody_direct", "nbody_plain", "nbody_plan",
     "p2p_apply", "p2p_cuda", "p2p_operands", "p2p_plain",
     "level_classify_cuda", "level_classify_plain",
+    "upward_cuda", "upward_launches", "upward_plain",
 ]

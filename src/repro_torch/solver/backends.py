@@ -9,8 +9,9 @@ registry maps names to backends:
                is ``classify_level_reference``, once a level, the same
                plain version the "cuda" hook runs on CPU tensors)
   "cuda"       the hand-written CUDA kernels of ``repro_torch.kernels``,
-               one per hook: classify (one launch a tree level),
-               level-fused M2L, P2L and the
+               one per hook: classify (one launch a tree level), the
+               upward pass (P2M and every M2M level, at most two
+               launches), level-fused M2L, P2L and the
                fused evaluation phase (the main path), and the per-level
                M2L, L2P and P2P. The fused hooks take precedence, so the
                main path runs the first four; a backend derived with
@@ -67,6 +68,7 @@ class Backend:
     p2l: PhaseImpl = None
     eval_fused: PhaseImpl = None
     leaf_classify: PhaseImpl = None    # the topology hook, every level
+    upward: PhaseImpl = None
     batched_dispatch: str = "vmap"
 
     def __post_init__(self):
@@ -82,7 +84,8 @@ class Backend:
         """kwargs for ``fmm_evaluate`` selecting this backend's hooks."""
         return {"p2p_impl": self.p2p, "m2l_impl": self.m2l,
                 "l2p_impl": self.l2p, "m2l_fused_impl": self.m2l_fused,
-                "p2l_impl": self.p2l, "eval_fused_impl": self.eval_fused}
+                "p2l_impl": self.p2l, "eval_fused_impl": self.eval_fused,
+                "upward_impl": self.upward}
 
     def topology_impls(self) -> dict:
         """kwargs for ``fmm_build`` selecting this backend's topology hook."""
@@ -118,12 +121,12 @@ def get_backend(name: str, device=None) -> Backend:
 def _make_cuda() -> Backend:
     from ..kernels import (eval_fused_apply, l2p_apply, level_classify_cuda,
                            m2l_fused_apply, m2l_level_apply, p2l_apply,
-                           p2p_apply)
+                           p2p_apply, upward_cuda)
 
     return Backend(name="cuda", p2p=p2p_apply, m2l=m2l_level_apply,
                    l2p=l2p_apply, m2l_fused=m2l_fused_apply, p2l=p2l_apply,
                    eval_fused=eval_fused_apply,
-                   leaf_classify=level_classify_cuda,
+                   leaf_classify=level_classify_cuda, upward=upward_cuda,
                    batched_dispatch="native")
 
 

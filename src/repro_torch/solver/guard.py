@@ -14,8 +14,9 @@ the robustness layer over ``FmmSolver``:
             *which* cap to grow), at most ``max_cap_doublings`` times;
             the ``FmmSolver.build`` cache is the lattice
   degrade   a non-finite output on finite input degrades per phase:
-            first the evaluation-phase hooks drop to the plain torch
-            sweeps (topology and M2L keep their kernels), then the whole
+            first the evaluation-phase and upward hooks drop to the
+            plain torch sweeps (topology and M2L keep their kernels),
+            then the whole
             "reference" backend; the final rung is the O(N^2)
             ``core.direct`` summation, which cannot drop interactions
             and has no caps to overflow
@@ -128,17 +129,18 @@ def grow_caps(cfg: FmmConfig, margins: Optional[dict] = None) -> FmmConfig:
 
 def degraded_eval_backend(be: Backend) -> Optional[Backend]:
     """The per-phase degradation rung: ``be`` with its evaluation-phase
-    hooks (fused evaluation, P2P, L2P, downward P2L) dropped to the plain
+    hooks (fused evaluation, P2P, L2P, downward P2L) and its upward hook
+    (a NaN in the multipoles reaches every output) dropped to the plain
     torch sweeps, keeping the topology and M2L hooks (on "cuda": classify
     and M2L still launch their kernels). Registered under
     ``"<name>+ref-eval"`` so ``FmmSolver.build`` caches it like any
     backend. None if ``be`` has nothing to degrade."""
     if (be.eval_fused is None and be.p2p is None and be.l2p is None
-            and be.p2l is None):
+            and be.p2l is None and be.upward is None):
         return None
     name = f"{be.name}+ref-eval"
     degraded = dataclasses.replace(be, name=name, eval_fused=None,
-                                   p2p=None, l2p=None, p2l=None)
+                                   p2p=None, l2p=None, p2l=None, upward=None)
     return register_backend(degraded)
 
 

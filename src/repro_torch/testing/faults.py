@@ -168,7 +168,7 @@ def nan_coefficients(backend: str = "cuda", phase: str = "eval_fused"):
     deterministic non-finite coefficients/potentials from one compute
     phase, finite input. The health plane flags ``nonfinite_output``;
     the guard's per-phase degradation rung (the plain sweeps for the
-    evaluation phase) recovers."""
+    evaluation phase and the upward pass) recovers."""
     be = get_backend(backend)
     hook = getattr(be, phase)
     if hook is None:

@@ -1,5 +1,7 @@
 """PyTorch port on the CUDA card: each kernel against its plain version
-on the same CUDA tensors, launch counts per kernel per apply on the main
+on the same CUDA tensors (the upward kernel at the cells' 2^20 plans and
+the serving buckets, and its NaN fault recovered by the degrade rung),
+launch counts per kernel per apply on the main
 path and on the per-phase path (a program's first call launches from
 the host, its second records the launches into the graph it captures,
 a replay launches nothing from the host and runs the recorded kernels,
@@ -41,7 +43,8 @@ from repro_torch.kernels import (eval_fused_cuda, eval_fused_plain,
                                  nbody_cuda, nbody_direct, nbody_plain,
                                  nbody_plan,
                                  p2l_cuda, p2l_operands, p2l_plain, p2p_cuda,
-                                 p2p_operands, p2p_plain, reset_launch_counts)
+                                 p2p_operands, p2p_plain, reset_launch_counts,
+                                 upward_cuda, upward_launches, upward_plain)
 from repro_torch.kernels.build import recorded_counts
 from repro_torch.solver import FmmSolver, get_backend, register_backend
 
@@ -86,9 +89,11 @@ def _runs(fn):
 
 def _main_counts(nlevels, **kw):
     """Expected launches per kernel: the main path's by default on a tree
-    of ``nlevels`` levels (classify once a level)."""
-    want = {"classify": nlevels, "m2l": 1, "p2l": 1, "eval_fused": 1,
-            "l2p": 0, "p2p": 0, "nbody": 0}
+    of ``nlevels`` levels (classify once a level, the upward pass in
+    ``upward_launches(nlevels)``)."""
+    want = {"classify": nlevels, "upward": upward_launches(nlevels),
+            "m2l": 1, "p2l": 1, "eval_fused": 1, "l2p": 0, "p2p": 0,
+            "nbody": 0}
     want.update(kw)
     return want
 
@@ -181,7 +186,7 @@ def test_nbody_direct_launches_once_and_excludes_by_position(cuda):
     z[7] = z[3]
     reset_launch_counts()
     phi = nbody_direct(z, z, q)
-    assert launch_counts() == _main_counts(0, m2l=0, p2l=0,
+    assert launch_counts() == _main_counts(0, upward=0, m2l=0, p2l=0,
                                            eval_fused=0, nbody=1)
     assert torch.isfinite(phi).all()
     from repro_torch.core.direct import direct_potential
@@ -190,6 +195,100 @@ def test_nbody_direct_launches_once_and_excludes_by_position(cuda):
 
 def _bits(x):
     return x.view(torch.int64 if x.element_size() == 8 else torch.int32)
+
+
+def _upward_against_plain(plan, cfg):
+    """The upward kernel on ``plan`` twice and its plain version once:
+    the launches (``upward_launches`` a pass), the two launches bitwise
+    equal, and the kernel within the smoke's scaled error of the plain
+    pass over every box of every level: 1e-10 in f64; in f32 1e-5, or
+    ten times the plain pass's own f32 rounding (against the same pass
+    on the operands widened to f64) where that is above 1e-6. Returns
+    (error, that rounding level or None)."""
+    smoke = _smoke()
+    rho = F.effective_radii(plan.tree, cfg)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    first = torch.cat(upward_cuda(plan.tree, cfg, rho), dim=1)
+    second = torch.cat(upward_cuda(plan.tree, cfg, rho), dim=1)
+    torch.cuda.synchronize()
+    assert launch_counts()["upward"] == 2 * upward_launches(cfg.nlevels)
+    assert torch.equal(_bits(torch.view_as_real(first)),
+                       _bits(torch.view_as_real(second)))
+    plain = torch.cat(upward_plain(plan.tree, cfg, rho), dim=1)
+    err = smoke.scaled_err(first, plain)
+    if cfg.dtype == "f64":
+        assert err <= 1e-10, err
+        return err, None
+    # a box whose charges cancel exactly (the root of the vortex pair)
+    # has coefficients that are f32 rounding in either pass
+    wide, _ = smoke.upcast((plan.tree, cfg, rho), {}, torch)
+    level = smoke.scaled_err(plain.to(torch.complex128),
+                             torch.cat(upward_plain(*wide), dim=1))
+    assert err <= max(1e-5, 10 * level), (err, level)
+    return err, level
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("kernel", ["harmonic", "log"])
+def test_upward_kernel_matches_plain_at_the_cells_plans(cuda, dtype, kernel):
+    """The 2^20 plans of the solve cells (uniform, layer) and of the
+    vortex cell (the vortex example's pair), p = 17, seven levels."""
+    from repro_torch.configs import fmm_config
+
+    smoke = _smoke()
+    cfg = dataclasses.replace(fmm_config(1 << 20, p=17, dtype=dtype),
+                              kernel=kernel)
+    pair = smoke.load_example("torch_vortex_dynamics").vortex_pair(cfg.n)
+    for dist in ("uniform", "layer", "vortex"):
+        if dist == "vortex":
+            z, q = (torch.from_numpy(a + 0j).to(cuda) for a in pair)
+        else:
+            z, q = particles(dist, cfg.n, 0, device=cuda)
+        plan = F.fmm_build(z[None], q[None], cfg,
+                           leaf_classify_impl=level_classify_cuda)
+        print(f"upward[{dtype}/{kernel}/{dist}]: scaled_err and the "
+              f"plain pass's f32 rounding {_upward_against_plain(plan, cfg)}")
+        del plan
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("kernel", ["harmonic", "log"])
+def test_upward_kernel_matches_plain_at_the_serving_buckets(cuda, dtype,
+                                                            kernel):
+    """The serving plane's configs (``default_cfg_factory``) at nlevels 0
+    to 5, B = 8 problems a bucket, one of them with the charges of its
+    last fifth zero, as the plane pads a short request."""
+    from repro_torch.serve import default_cfg_factory
+
+    for nlevels, n in enumerate(64 * 4**k for k in range(6)):
+        cfg = dataclasses.replace(default_cfg_factory(n, dtype=dtype),
+                                  kernel=kernel)
+        assert cfg.nlevels == nlevels
+        zs, qs = zip(*(particles(("uniform", "normal", "layer")[b % 3], n,
+                                 b, device=cuda) for b in range(8)))
+        z, q = torch.stack(zs), torch.stack(qs)
+        q[7, n - n // 5:] = 0
+        plan = F.fmm_build(z, q, cfg, leaf_classify_impl=level_classify_cuda)
+        _upward_against_plain(plan, cfg)
+
+
+def test_nan_upward_is_recovered_by_the_degradation_rung(cuda):
+    """``nan_coefficients(phase="upward")``: the primary rung's phi is
+    non-finite, the degrade rung (plain upward and evaluation sweeps)
+    recovers it, within 1e-10 of the reference backend."""
+    from repro_torch.errors import BackendDowngradeWarning
+    from repro_torch.solver import GuardedSolver
+    from repro_torch.testing import nan_coefficients
+
+    cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype="f64")
+    z, q = particles("uniform", cfg.n, 2, device=cuda)
+    with nan_coefficients("cuda", "upward"), \
+            pytest.warns(BackendDowngradeWarning):
+        phi, rep = GuardedSolver(cfg).apply_guarded(z, q)
+    assert rep.ok and rep.final_rung == "degrade:cuda+ref-eval"
+    ref = FmmSolver.build(cfg, backend="reference").apply(z, q)
+    assert _rel(phi, ref) <= 1e-10
 
 
 def _twice(fn):
@@ -603,7 +702,8 @@ def test_m2l_rows_spread_over_a_wide_row_are_bitwise_the_packed(cuda, dtype):
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
 def test_refresh_apply_plan_launches_and_is_bitwise_apply(cuda, dtype):
     """Three steps on moved particles: refresh launches classify once a
-    level, apply_plan M2L, P2L and the fused evaluation once each (from
+    level, apply_plan the upward pass (two launches at four levels) and
+    M2L, P2L and the fused evaluation once each (from
     the host at a program's first call, recorded into its graph at the
     second, replayed after; ``stats`` calls ``refresh`` too, so the
     refresh program captures in the first step); phi bitwise apply's;
@@ -612,14 +712,15 @@ def test_refresh_apply_plan_launches_and_is_bitwise_apply(cuda, dtype):
     cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype=dtype)
     z, q = particles("uniform", cfg.n, 11, device=cuda)
     solver = FmmSolver(cfg)
-    none = _main_counts(0, m2l=0, p2l=0, eval_fused=0)
+    none = _main_counts(0, upward=0, m2l=0, p2l=0, eval_fused=0)
     for step in range(3):
         zk = smoke.perturbed(z, step)
         want = dict(none, classify=cfg.nlevels)
         plan, host, rec = _runs(lambda: solver.refresh(zk, q))
         assert (host, rec) == [(want, none), (none, none),
                                (none, none)][step]
-        want = dict(none, m2l=1, p2l=1, eval_fused=1)
+        want = dict(none, upward=upward_launches(cfg.nlevels), m2l=1,
+                    p2l=1, eval_fused=1)
         phi, host, rec = _runs(lambda: solver.apply_plan(plan))
         assert (host, rec) == [(want, none), (none, want),
                                (none, none)][step]
@@ -781,7 +882,8 @@ def test_plain_rungs_warn_on_the_card(cuda, case):
     assert phi.device.type == "cuda" and bool(torch.isfinite(phi).all())
 
 
-@pytest.mark.parametrize("name", ["classify", "m2l", "p2l", "eval_fused"])
+@pytest.mark.parametrize("name", ["classify", "upward", "m2l", "p2l",
+                                  "eval_fused"])
 def test_kernel_launch_error_propagates_out_of_apply_guarded(cuda,
                                                               monkeypatch,
                                                               name):
@@ -820,8 +922,8 @@ def test_tune_and_guard_on_the_card(cuda, dist):
     reset_launch_counts()
     tuned = solver.tune(z, q)
     probes = len(tuned.tune_result.trials)
-    assert launch_counts() == _main_counts(probes * cfg.nlevels, m2l=0,
-                                           p2l=0, eval_fused=0)
+    assert launch_counts() == _main_counts(probes * cfg.nlevels, upward=0,
+                                           m2l=0, p2l=0, eval_fused=0)
     # its first call (from the host) or, where the other distribution
     # tuned to the same caps, its second (recorded into the capture)
     phi, host, rec = _runs(lambda: tuned.apply_checked(z, q))
@@ -860,7 +962,8 @@ def _request(n, seed):
     return particles_numpy("uniform", n, seed)
 
 
-@pytest.mark.parametrize("name", ["classify", "m2l", "p2l", "eval_fused"])
+@pytest.mark.parametrize("name", ["classify", "upward", "m2l", "p2l",
+                                  "eval_fused"])
 def test_kernel_launch_error_propagates_out_of_serve(cuda, monkeypatch,
                                                      name):
     """A kernel whose launch fails is not shed: the error leaves
@@ -1000,7 +1103,7 @@ def test_each_entry_point_replays_its_eager_pipeline_bitwise(cuda, dtype,
     solver = FmmSolver(cfg, backend)
     plan = smoke.eager_entry(solver, "refresh", *(
         a.to(cfg.torch_complex)[None] for a in (z, q)))
-    none = _main_counts(0, m2l=0, p2l=0, eval_fused=0)
+    none = _main_counts(0, upward=0, m2l=0, p2l=0, eval_fused=0)
     for entry, (call, eager, want) in smoke.entry_calls(
             solver, z, q, zb, qb, plan).items():
         ref = eager()

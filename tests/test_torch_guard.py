@@ -258,7 +258,7 @@ def test_apply_checked_overflow_error_carries_margins():
 
 
 @pytest.mark.parametrize("phase", ["eval_fused", "p2l", "m2l_fused",
-                                   "leaf_classify"])
+                                   "leaf_classify", "upward"])
 def test_hook_exception_propagates_out_of_the_ladder(phase):
     """A hook that raises (a kernel that fails to build or launch) is not
     a rung: the exception leaves ``apply_guarded`` as it would leave
