@@ -63,6 +63,15 @@ Runs top to bottom and exits nonzero on the first failure:
    bounds as in 3, and ``apply_charges`` on a held plan run as the
    graphs phase runs an entry point, its real part against the f64
    direct log sum at 4096 targets and against the reference backend;
+   block: at the shapes of the block matvec (2^20 nodes on the eight wire
+   contours, f64, G = log, caps 8/16, 8 densities), the upward pass, M2L,
+   P2L and the fused evaluation for 8 densities on one plan against
+   their plain versions, a second launch bitwise equal, each timed with
+   its share of the bound (``bench/metrics/_work_block.py``) beside its
+   single-density launch, and ``apply_charges`` of the (8, N) block
+   against eight single-density calls on the same plan, replayed (rows
+   within F64_TOL; the block at most half the eight; medians and phase
+   splits of both);
    after each group of phases the programs held, the pool bytes charged
    against the programs' memory budget, the solvers it released, and
    the memory reserved with its peak; nothing is released between
@@ -307,6 +316,14 @@ SWEEP = [1 << k for k in range(9, 21)]
 # near-field pair adds over the harmonic pair's (work_of)
 LOG_CAPS = (256, 1024)
 LOG_KERNELS = ("m2l", "p2l", "eval_fused", "upward")
+# block: K densities on one held plan of nodes on the eight wire contours
+# (the f64-log-mtl8-block cell: f64, G = log, caps 8/16)
+BLOCK_K = 8
+BLOCK_CAPS = (8, 16)
+BLOCK_REPS = 20
+# device names of the K-density kernels -> their libraries
+BLOCK_OF = {"eval_block": "eval_fused", "m2l_block": "m2l",
+            "p2l_block": "p2l", "upward_block": "upward"}
 LOG_TERM = 14
 LOG_PAIR = 2
 # accuracy bounds of the JAX reference's own tests
@@ -485,9 +502,9 @@ def replay_kernels(call, torch):
     counts = dict.fromkeys(KERNELS, 0)
     for e in prof.events():
         m = KERNEL_NAME.search(e.name)
-        if (str(e.device_type).endswith("CUDA") and m
-                and m.group(1) in counts):
-            counts[m.group(1)] += 1
+        name = m and BLOCK_OF.get(m.group(1), m.group(1))
+        if str(e.device_type).endswith("CUDA") and name in counts:
+            counts[name] += 1
     return out, counts
 
 
@@ -1269,10 +1286,15 @@ def entry_calls(solver, z, q, zb, qb, plan) -> dict:
     """Per entry point of the graphs phase: (the solver's call, the same
     work run eagerly, the launches one run makes) on one problem (z, q),
     a batch (zb, qb) of GRAPH_B and a plan of (z, q) (``apply_charges``
-    evaluates the charges in reverse order on it)."""
+    evaluates the charges in reverse order on it, ``apply_charges_block``
+    BLOCK_K rolls of them at once)."""
+    from torch import stack as torch_stack
+
     cfg = solver.cfg
     zc, qc = (a.to(cfg.torch_complex)[None] for a in (z, q))
     qr = q.flip(0).to(cfg.torch_complex)
+    qk = torch_stack([q.roll(17 * k) for k in range(BLOCK_K)]).to(
+        cfg.torch_complex)
     zbc, qbc = (a.to(cfg.torch_complex) for a in (zb, qb))
     full = (want_counts(cfg) if solver.backend.name == "cuda"
             else phase_counts(cfg))
@@ -1297,7 +1319,24 @@ def entry_calls(solver, z, q, zb, qb, plan) -> dict:
                           lambda: eager_entry(solver, "apply_charges", plan,
                                               qr[None])[0],
                           dict(full, classify=0)),
+        # BLOCK_K densities on the plan: the per-phase path's L2P and
+        # P2P launch once a density
+        "apply_charges_block": (
+            lambda: solver.apply_charges(plan, qk),
+            lambda: eager_entry(solver, "apply_charges", plan, qk),
+            dict(full, classify=0, l2p=BLOCK_K * full["l2p"],
+                 p2p=BLOCK_K * full["p2p"])),
     }
+
+
+def program_of(solver, entry: str):
+    """The program of an ``entry_calls`` entry (``apply_charges_block``:
+    the ``apply_charges`` program of BLOCK_K densities)."""
+    if entry == "apply_charges_block":
+        return next(p for k, p in solver.programs().items()
+                    if k[0] == "apply_charges" and k[1] == (1, BLOCK_K))
+    return next(p for k, p in solver.programs().items()
+                if k[0] == entry and not isinstance(k[1], tuple))
 
 
 def entry_phase(tag: str, solver, call, eager, want: dict, torch) -> None:
@@ -1477,6 +1516,178 @@ def log_phase(torch) -> list[dict]:
         row["launches"] = want[row["name"].split("_log_")[0]]
     solver._release_executables()
     del solver, plan, phi, ref, direct, call, eager
+    torch.cuda.empty_cache()
+    return rows
+
+
+def block_config():
+    """The config of the block leg: the f64-log-mtl8-block cell's at N
+    (f64, G = log, p = 17, caps BLOCK_CAPS)."""
+    import dataclasses
+
+    from repro_torch.configs import fmm_config
+
+    return dataclasses.replace(fmm_config(N, p=P_TERMS, dtype="f64"),
+                               kernel="log", strong_cap=BLOCK_CAPS[0],
+                               weak_cap=BLOCK_CAPS[1])
+
+
+def block_phase(torch) -> list[dict]:
+    """BLOCK_K densities on one held plan at the block cell's shapes (N
+    nodes on the eight wire contours, f64, G = log, ``block_config``):
+    (a) each K-density kernel (upward, level-fused M2L, P2L, fused
+    evaluation) on its staged operands against its plain version
+    (F64_TOL), a second launch bitwise equal to the first, timed as the
+    kernel phase times (back-to-back launches on the staged operands)
+    beside the same kernel's single-density launch on density 0, with
+    its share of the bound of ``bench/metrics/_work_block.py``; (b)
+    ``apply_charges`` with the (BLOCK_K, N) block against BLOCK_K
+    single-density calls on the same plan, each program warmed until it
+    replays, the block program's eager call launching and its capture
+    recording one main-path apply's kernels (``want_counts``, classify
+    none; counted by the wrappers): every row within F64_TOL of its
+    single call, then BLOCK_REPS replays of each (the block call; the
+    BLOCK_K single calls back to back), host-clock medians ending in a
+    synchronize, and each side's phase split (device marks, medians over
+    its replays). Returns the kernel rows, named
+    ``<kernel>_block<K>_f64``, with the launches the block program's
+    first call made of each. (The wire plan has no P2L entry at caps
+    BLOCK_CAPS: its P2L launch is a no-op, timed as such.)"""
+    from bench.metrics import _work_block
+    from bench.traffic.block_matvec import block_work
+    from repro_torch import trace
+    from repro_torch.core import fmm as F
+    from repro_torch.data.synthetic import particles_numpy
+    from repro_torch.kernels import (eval_fused_cuda, eval_fused_plain,
+                                     eval_operands, m2l_cuda, m2l_operands,
+                                     m2l_plain, p2l_cuda, p2l_operands,
+                                     p2l_plain, upward_cuda, upward_plain)
+    from repro_torch.solver import FmmSolver
+
+    cfg, K = block_config(), BLOCK_K
+    counts = want_counts(cfg, classify=0)     # one call's launches, any K
+    tag = f"block[f64/wires8/K={K}]"
+    z, q0 = (torch.from_numpy(a).cuda()
+             for a in particles_numpy("wires8", N, SEED))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    Q = torch.randn((K, N), generator=gen, device="cuda",
+                    dtype=torch.float64).to(cfg.torch_complex)
+    plan = F.fmm_build(z[None], q0[None], cfg)
+    check(int(plan.conn.overflow.max()) == 0,
+          f"{tag}: lists overflow caps {BLOCK_CAPS}")
+    work = block_work(plan, cfg, K)
+    one_work = dict(work, densities=1)
+    print(f"{tag}: occupied entries {work}", flush=True)
+    plan = F.with_charges(plan, Q)
+    tree, conn = plan.tree, plan.conn
+    rho = F.effective_radii(tree, cfg)
+    mult = upward_plain(tree, cfg, rho)
+    local = F.downward(mult, tree, conn, cfg)
+    ev_args, ev_kw = eval_operands(local, mult[-1], tree, conn, cfg)
+    m2_args = m2l_operands(mult, conn.weak, tree.centers, cfg, rho)[0]
+    pl_args, pl_kw = p2l_operands(tree, conn, cfg, rho[-1])
+
+    def first(a, k0=0):
+        """The single-density operands of density k0: each K-row plane
+        cut to its row."""
+        return [x[k0:k0 + 1].contiguous() if isinstance(x, torch.Tensor)
+                and x.dim() and x.shape[0] == K else x for x in a]
+
+    single_tree = tree._replace(q=tree.q[:1].contiguous())
+    cases = {
+        "upward": (lambda: (torch.cat(upward_cuda(tree, cfg, rho), 1),),
+                   lambda: (torch.cat(upward_plain(tree, cfg, rho), 1),),
+                   lambda: upward_cuda(single_tree, cfg, rho),
+                   _work_block.upward_block),
+        "m2l": (lambda: m2l_cuda(*m2_args), lambda: m2l_plain(*m2_args),
+                lambda: m2l_cuda(*first(m2_args)), _work_block.m2l_block),
+        "p2l": (lambda: p2l_cuda(*pl_args, **pl_kw),
+                lambda: p2l_plain(*pl_args, **pl_kw),
+                lambda: p2l_cuda(*first(pl_args), **pl_kw),
+                _work_block.p2l_block),
+        "eval_fused": (
+            lambda: eval_fused_cuda(*ev_args, **ev_kw),
+            lambda: eval_fused_plain(*ev_args, **ev_kw),
+            lambda: eval_fused_cuda(*first(ev_args), **{
+                k: first([v])[0] for k, v in ev_kw.items()}),
+            _work_block.eval_block),
+    }
+    rows = []
+    for name, (kern, plain, single, count) in cases.items():
+        launches = counts[name]
+        a, b = kern(), kern()
+        ref = plain()
+        torch.cuda.synchronize()
+        check(all(torch.equal(x, y) for x, y in zip(a, b)),
+              f"{tag}/{name}: second launch differs from the first")
+        got = a[0] if len(a) == 1 else torch.complex(*a)
+        want = ref[0] if len(ref) == 1 else torch.complex(*ref)
+        err = scaled_err(got, want)
+        check(err <= F64_TOL, f"{tag}/{name}: kernel vs plain {err:.3e}")
+        ms = time_kernel(staged_launch(name, kern, launches), KERNEL_REPS,
+                         torch)
+        ms1 = time_kernel(staged_launch(name, single, launches
+                                        if name == "upward" else 1),
+                          KERNEL_REPS, torch)
+        flops, dense, nbytes = count(work)
+        t_ops = ops_seconds(flops, dense, "f64")
+        bound = 1e3 * max(t_ops, nbytes / PEAK_BYTES)
+        by = "operations" if t_ops >= nbytes / PEAK_BYTES else "bytes"
+        f1, d1, b1 = count(one_work)
+        bound1 = 1e3 * max(ops_seconds(f1, d1, "f64"), b1 / PEAK_BYTES)
+        print(f"time {tag}/{name}: K={K} {ms:.4f} ms ({launches} "
+              f"launches), K=1 {ms1:.4f} ms (x{K} = {K * ms1:.4f}); bound "
+              f"{bound:.4f} ms ({by}; {flops:.3e} flop of which "
+              f"{dense:.3e} dense, {nbytes:.3e} B), share "
+              f"{100 * bound / ms:.2f}% (K=1: {100 * bound1 / ms1:.2f}%); "
+              f"scaled_err vs plain {err:.3e}", flush=True)
+        rows.append({"name": f"{name}_block{K}_f64", "route": "cuda",
+                     "source": KERNELS[name][0], "replaces": KERNELS[name][1],
+                     "launches": None, "ms": ms, "single_ms": ms1,
+                     "bound_ms": bound, "bound_by": by, "library_ms": None,
+                     "max_abs_err": float((got - want).abs().max())})
+    del cases, ev_args, ev_kw, m2_args, pl_args, mult, local, plan, tree
+    torch.cuda.empty_cache()
+
+    # (b) one block call against K single calls on the same held plan
+    solver = FmmSolver(cfg, "cuda")
+    held = solver.refresh(z, q0)
+    for kind in ("eager", "capture", "replay"):
+        block, c, _ = counted(lambda: solver.apply_charges(held, Q), torch)
+        check(ran(c, counts) and [p.kind for p in c.programs] == [kind],
+              f"{tag}: {kind} call {calls_note(c)} (want {counts})")
+        singles = [solver.apply_charges(held, Q[k]) for k in range(K)]
+    torch.cuda.synchronize()
+    prog = program_of(solver, "apply_charges_block")
+    check(prog.launches == counts and prog.recorded == counts,
+          f"{tag}: the K={K} program launched {prog.launches} in its "
+          f"first call, recorded {prog.recorded} (want {counts})")
+    for row in rows:                        # launches in one block call
+        row["launches"] = prog.launches[row["name"].split("_block")[0]]
+    errs = [scaled_err(block[k], singles[k]) for k in range(K)]
+    check(max(errs) <= F64_TOL, f"{tag}: block rows vs single calls {errs}")
+    split = {}
+    for side, call in (("block", lambda: solver.apply_charges(held, Q)),
+                       ("singles", lambda: [solver.apply_charges(held, Q[k])
+                                            for k in range(K)])):
+        trace.reset()
+        secs = [host_s(call, torch)[1] for _ in range(BLOCK_REPS)]
+        readings = trace.snapshot()["phases"]["apply_charges"]
+        phases = {k: statistics.median(r[k] for r in readings)
+                  for k in readings[0]}
+        split[side] = (1e3 * statistics.median(secs), phases, len(readings))
+    (bms, bph, bn), (sms, sph, sn) = split["block"], split["singles"]
+    print(f"{tag}: apply_charges K={K} {bms:.3f} ms against {K} K=1 calls "
+          f"{sms:.3f} ms (medians of {BLOCK_REPS}, replayed, host clock): "
+          f"{bms / sms:.3f} of it; rows vs single calls scaled_err "
+          f"{max(errs):.2e}; phases (device ms, medians over {bn} / {sn} "
+          f"replays) block {json.dumps(bph)}, a single call "
+          f"{json.dumps(sph)}", flush=True)
+    check(bms <= 0.5 * sms, f"{tag}: a block call {bms:.3f} ms is not at "
+          f"most half of {K} single calls {sms:.3f} ms")
+    solver._release_executables()
+    trace.reset()
+    del solver, held, block, singles, Q
     torch.cuda.empty_cache()
     return rows
 
@@ -3212,6 +3423,8 @@ def main() -> int:
     memory_line("graphs", torch)
     rows += log_phase(torch)
     memory_line("log", torch)
+    rows += block_phase(torch)
+    memory_line("block", torch)
     for dt in ("f32", "f64"):
         seam_phase(dt, served[dt], torch)
     for dt in ("f32", "f64"):
@@ -3243,8 +3456,8 @@ def main() -> int:
     memory_line("direct", torch)
     for row in rows:
         base, rdt = row["name"].rsplit("_", 1)
-        if base.endswith("_log"):
-            pass                    # log_phase counted its launches
+        if base.endswith("_log") or "_block" in base:
+            pass                    # log_phase, block_phase counted theirs
         elif base != "nbody":
             row["launches"] = paths[rdt][base]
         else:

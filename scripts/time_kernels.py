@@ -3,7 +3,7 @@
 
     python3 scripts/time_kernels.py [--src DIR] [--label TEXT]
                                     [--only NAME,...] [--kernel log]
-                                    [--sass]
+                                    [--sass] [--p P]
 
 Imports ``repro_torch`` from ``DIR`` (default: this checkout's ``src``;
 another tree's ``src``, e.g. an earlier commit unpacked with ``git
@@ -27,8 +27,9 @@ timed and digested as one, "upward" the upward pass's launches, timed
 and digested as one). ``--kernel log`` times the kernels with an
 f64 log branch (the fused evaluation, P2P, M2L and P2L) on the log leg's
 plan instead (``chip_smoke.log_config``: layer particles, G = log, caps
-256/1024). ``--sass`` also prints one JSON line of the fused evaluation's
-and the P2P kernel's code: a digest of each instantiation's SASS
+256/1024). ``--sass`` also prints one JSON line of the code of the fused
+evaluation, P2P, M2L, P2L and upward kernels: a digest of each
+instantiation's SASS
 (``cuobjdump -sass``; equal digests across two trees: the same machine
 code), its registers and spills (``-Xptxas -v``) and the opcode mix of
 its pair loop (``chip_smoke.sass_pair_loop``: the innermost loop with
@@ -39,11 +40,15 @@ digest; the fused evaluation and L2P take their local-expansion planes
 from the seed too (not from the downward pass, whose M2L and P2L
 roundings would otherwise reach them).
 
+``--p`` times either plan at another expansion order (default 17; another
+p runs the kernels' generic-P instantiations).
+
 Needs a CUDA card; exits nonzero without one.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import re
@@ -62,8 +67,9 @@ import chip_smoke as smoke  # noqa: E402
 LOCAL_PLANES = {"eval_fused": (9, 10), "l2p": (0, 1)}
 # The kernels ``--kernel log`` times.
 LOG_TIMED = ("eval_fused", "p2p", "m2l", "p2l")
-# The libraries whose code ``--sass`` reports (they share the pair loop).
-SASS_LIBS = ("eval_fused", "p2p")
+# The libraries whose code ``--sass`` reports (the first two share the
+# pair loop).
+SASS_LIBS = ("eval_fused", "p2p", "m2l", "p2l", "upward")
 # One instruction of ``cuobjdump -sass``: address, text, encoding words.
 SASS_LINE = (r"/\*([0-9a-f]{4,})\*/\s+(.*?);\s+/\* (0x[0-9a-f]+) \*/\s*\n"
              r"\s*/\* (0x[0-9a-f]+) \*/")
@@ -148,6 +154,8 @@ def main() -> int:
                     help="log: the f64 log branches on the log leg's plan")
     ap.add_argument("--sass", action="store_true",
                     help="also print the SASS digests and pair loops")
+    ap.add_argument("--p", type=int, default=smoke.P_TERMS,
+                    help="expansion order of the plan")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
 
@@ -170,8 +178,8 @@ def main() -> int:
     code = None if log else smoke.nbody_code()
     for dt in ("f64",) if log else ("f32", "f64"):
         z, q = particles("layer" if log else "uniform", smoke.N, smoke.SEED)
-        start = (smoke.log_config(dt) if log else
-                 fmm_config(smoke.N, p=smoke.P_TERMS, dtype=dt))
+        start = (dataclasses.replace(smoke.log_config(dt), p=args.p) if log
+                 else fmm_config(smoke.N, p=args.p, dtype=dt))
         cfg, cap, occupied = smoke.capture(start, z, q, torch)
         ms, digest = {}, {}
         only = (set(filter(None, args.only.split(",")))

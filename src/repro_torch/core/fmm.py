@@ -8,7 +8,12 @@ Phases (paper naming):
 
 Every tensor carries a leading problem axis B (B = 1 for one problem):
 B problems of one config share every static shape, so each phase is one
-pass — and each kernel one launch — for the whole batch. The sweeps here
+pass — and each kernel one launch — for the whole batch. On a one-problem
+plan the charges may carry K rows instead (``with_charges``): K densities
+on one geometry. Then every charge-dependent plane (charges, multipoles,
+locals, phi) has a leading density axis K while the tree, its centres
+and radii and the lists keep their single row, which the sweeps here
+broadcast and the kernels read once (the density axis). The sweeps here
 are plain torch: they are the "reference" backend and the twins the
 kernels of ``repro_torch.kernels`` are checked against. ``fmm_build``
 and ``fmm_evaluate`` take the hooks kernels are swapped into: the main
@@ -155,7 +160,7 @@ def p2m(tree: Tree, cfg: FmmConfig, rho=None) -> torch.Tensor:
     w = (zl - tree.centers[L][..., None]) / rl
 
     if cfg.kernel == "harmonic":
-        coeffs = [torch.zeros_like(zl[..., 0])]
+        coeffs = [torch.zeros_like(ql[..., 0])]
         pw = ql / rl
         for _ in range(cfg.p):
             coeffs.append(-pw.sum(dim=-1))
@@ -483,14 +488,19 @@ def with_charges(plan: FmmPlan, q: torch.Tensor) -> FmmPlan:
     order as ``build_tree`` gathers them (phase ``fmm::charges``). The
     tree and the lists depend on the positions alone, so ``fmm_evaluate``
     of the result is bitwise that of a plan built from the same positions
-    and ``q``."""
+    and ``q``. On a one-problem plan ``q`` may be (K, N), K densities:
+    one gather of the K rows through the one permutation, and the plan's
+    geometry stays single (the density axis, module docstring)."""
     with trace.phase("fmm::charges"):
-        sorted_q = torch.gather(q.to(plan.tree.z.dtype), -1, plan.tree.perm)
+        perm = plan.tree.perm.expand(q.shape[0], -1)
+        sorted_q = torch.gather(q.to(plan.tree.z.dtype), -1, perm)
     return FmmPlan(tree=plan.tree._replace(q=sorted_q), conn=plan.conn)
 
 
 def unsort(phi_sorted: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """Rank order -> input order (``perm`` is a permutation per row)."""
+    """Rank order -> input order (``perm`` is a permutation per row; one
+    row serves every density of a (K, N) ``phi_sorted``)."""
+    perm = perm.expand(phi_sorted.shape[0], -1)
     return torch.empty_like(phi_sorted).scatter_(-1, perm, phi_sorted)
 
 

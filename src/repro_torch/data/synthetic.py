@@ -8,7 +8,9 @@ checkpoint (``lm_batch``, ``Prefetcher``).
 draws for the same ``(dist, n, seed)`` — uniform in the unit square,
 N(0.5, 0.1^2) per axis and the 'layer' distribution, rejected to fit the
 unit square as in the paper — so both packages see the same particles.
-``ragged_requests`` is the serving workload built on them, request for
+Its "wires8" distribution, which the reference does not have, puts the
+points on eight round contours instead (``wire_nodes``): the boundary
+nodes of a multiconductor line's cross-section. ``ragged_requests`` is the serving workload built on them, request for
 request the reference's.
 """
 from __future__ import annotations
@@ -46,9 +48,39 @@ def lm_batch(dc: DataConfig, step: int, device=None) -> dict:
     return {"tokens": toks[:, :-1].to(dev), "labels": toks[:, 1:].to(dev)}
 
 
+#: The cross-section of ``wire_nodes``: eight round wires in a row in
+#: free space, centres (0.15 + 0.1 i, 0.5), radius 0.015 (radius / pitch
+#: 0.15, a 0.050-in-pitch ribbon cable).
+WIRES = 8
+WIRE_PITCH = 0.1
+WIRE_FIRST = 0.15
+WIRE_RADIUS = 0.015
+
+
+def wire_nodes(n: int, seed=0):
+    """(z, q) as complex128 numpy arrays: ``n`` boundary nodes on the
+    ``WIRES`` contours, ``n // WIRES`` a wire (the first ``n % WIRES``
+    wires one more), equispaced in angle from a phase drawn from the
+    seed in [0, 2 pi / nodes), wire by wire; then N(0, 1) real charges."""
+    rng = np.random.default_rng(seed)
+    counts = [n // WIRES + (i < n % WIRES) for i in range(WIRES)]
+    phases = rng.uniform(0.0, 1.0, WIRES)
+    parts = []
+    for i, m in enumerate(counts):
+        theta = 2 * np.pi * (phases[i] + np.arange(m)) / max(m, 1)
+        centre = WIRE_FIRST + WIRE_PITCH * i + 0.5j
+        parts.append(centre + WIRE_RADIUS * np.exp(1j * theta))
+    z = np.concatenate(parts)
+    q = rng.normal(size=n)
+    return z, q + 0j
+
+
 def particles_numpy(dist: str, n: int, seed: int = 0):
-    """(z, q) as complex128 numpy arrays: positions in the unit square and
-    N(0, 1) real charges."""
+    """(z, q) as complex128 numpy arrays: positions in the unit square
+    (or, for "wires8", on the contours of ``wire_nodes``) and N(0, 1)
+    real charges."""
+    if dist == "wires8":
+        return wire_nodes(n, seed)
     rng = np.random.default_rng(seed)
 
     def rejected(gen):

@@ -11,6 +11,12 @@ exactly n_max = max leaf population wide (64 at the paper's N = 2^20).
 kernels' per-target math (the twins of ``repro.kernels.common``'s);
 ``p2p_slots`` is the plain form of the near-field loop that the P2P and
 fused evaluation kernels share.
+
+K densities on one geometry (``core.fmm``'s density axis): the charge,
+coefficient and result planes carry K rows where the positions, lists,
+centres and radii keep one. The plain versions broadcast the single
+rows; the CUDA wrappers launch the K-density kernels
+(``geometry_rows``, ``density_chunks``).
 """
 from __future__ import annotations
 
@@ -19,6 +25,34 @@ import torch
 from ..core.config import FmmConfig
 from ..core.fmm import effective_radii, from_leaves, leaf_planes, rows
 from ..core.topology import leaf_layout
+
+
+#: Densities a launch of a K-density kernel (``*_block`` entry points of
+#: the fused evaluation and M2L) evaluates: its template instantiation.
+BLOCK_KD = 8
+
+
+def density_chunks(K: int) -> list[tuple[int, int]]:
+    """(first row, densities) of each launch that evaluates K densities:
+    blocks of BLOCK_KD on the K-density kernel, then each remaining
+    density on the single-density kernel (K = 3 runs as 1 + 1 + 1,
+    K = 11 as 8 + 1 + 1 + 1, K = 16 as 8 + 8)."""
+    full = K - K % BLOCK_KD
+    return ([(k0, BLOCK_KD) for k0 in range(0, full, BLOCK_KD)]
+            + [(k0, 1) for k0 in range(full, K)])
+
+
+def geometry_rows(geometry: torch.Tensor, charges: torch.Tensor) -> bool:
+    """Whether ``charges`` carry K densities on the single geometry of
+    ``geometry`` (leading axes 1 and K > 1) rather than one row a problem
+    (equal leading axes); anything else raises."""
+    G, K = geometry.shape[0], charges.shape[0]
+    if K == G:
+        return False
+    if G != 1:
+        raise ValueError(f"{K} charge rows on {G} problems: densities need "
+                         "a one-problem plan")
+    return True
 
 
 def dense_leaf_arrays(z: torch.Tensor, q: torch.Tensor, cfg: FmmConfig):

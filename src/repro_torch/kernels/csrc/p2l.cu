@@ -23,6 +23,11 @@
 // the list rows, the referenced source leaves' planes and the p+1
 // outputs of every leaf take several microseconds at 3.35 TB/s.
 //
+// K densities on one geometry (p2l_block_kernel): the density is the
+// grid's second axis over the one copy of the lists, centres, radii and
+// positions (problem stride 0); each density's sums are the K = 1
+// kernel's, bit for bit.
+//
 // Design: one warp owns one target leaf (WARPS a block); there is no
 // block barrier and no atomic, so a warp never waits on another and
 // results are bitwise reproducible (a problem's row of a batch equals its
@@ -125,8 +130,11 @@ __device__ __forceinline__ T scaled(T v, int l) {
   return LOG && l > 0 ? -v / T(l) : v;
 }
 
-template <typename T, bool LOG, int PF, int NF>
-__global__ void __launch_bounds__(WARPS * 32) p2l_kernel(
+// The kernel's body: problem blockIdx.y (p2l_kernel, DENS false), or
+// density c = blockIdx.y of the charges and the result on the one
+// geometry b = 0 (lists, centres, radii, positions; p2l_block_kernel).
+template <typename T, bool LOG, int PF, int NF, bool DENS>
+__device__ __forceinline__ void p2l_body(
     const int32_t* __restrict__ lists, const T* __restrict__ z0r,
     const T* __restrict__ z0i, const T* __restrict__ rho,
     const T* __restrict__ xr, const T* __restrict__ xi,
@@ -137,7 +145,8 @@ __global__ void __launch_bounds__(WARPS * 32) p2l_kernel(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int box = blockIdx.x * (blockDim.x >> 5) + warp;
   if (box >= nb) return;                 // warp-uniform: warp barriers only
-  const long long b = blockIdx.y, row = b * nb + box;
+  const long long b = DENS ? 0 : blockIdx.y, row = b * nb + box;
+  const long long c = blockIdx.y, crow = DENS ? c * nb + box : row;
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* mine = smem_raw + warp * warp_bytes(sizeof(T), P, S, PF > 0);
@@ -145,8 +154,8 @@ __global__ void __launch_bounds__(WARPS * 32) p2l_kernel(
 
   const T cr = z0r[row], ci = z0i[row], rh = rho[row];
   const int ne = compact(lists + row * S, S, s_list, lane);
-  T* o_r = outr + row * P;
-  T* o_i = outi + row * P;
+  T* o_r = outr + crow * P;
+  T* o_i = outi + crow * P;
   if (ne == 0) {                         // warp-uniform
     for (int l = lane; l < P; l += 32) o_r[l] = o_i[l] = T(0);
     return;
@@ -163,6 +172,7 @@ __global__ void __launch_bounds__(WARPS * 32) p2l_kernel(
     };
     for (int e = 0; e < ne; ++e) {
       const long long base = (b * nb + s_list[e]) * n + lane;
+      const long long qbase = DENS ? (c * nb + s_list[e]) * n + lane : base;
       if constexpr (NF > 0 && NF % 32 == 0) {
         // every lane's NF/32 particles loaded before the arithmetic
         constexpr int K = NF / 32;
@@ -171,8 +181,8 @@ __global__ void __launch_bounds__(WARPS * 32) p2l_kernel(
         for (int k = 0; k < K; ++k) {
           px[k] = xr[base + 32 * k];
           py[k] = xi[base + 32 * k];
-          cq[k] = qr[base + 32 * k];
-          sq[k] = qi[base + 32 * k];
+          cq[k] = qr[qbase + 32 * k];
+          sq[k] = qi[qbase + 32 * k];
         }
 #pragma unroll
         for (int k = 0; k < K; ++k)
@@ -181,8 +191,8 @@ __global__ void __launch_bounds__(WARPS * 32) p2l_kernel(
       } else {
         for (int j = 0; lane + j < n; j += 32)
           particle_terms<T, LOG, PF>(xr[base + j], xi[base + j],
-                                     qr[base + j], qi[base + j], cr, ci, rh,
-                                     P, add);
+                                     qr[qbase + j], qi[qbase + j], cr, ci,
+                                     rh, P, add);
       }
     }
     T mr = T(0), mi = T(0);
@@ -212,9 +222,10 @@ __global__ void __launch_bounds__(WARPS * 32) p2l_kernel(
     };
     for (int e = 0; e < ne; ++e) {
       const long long base = (b * nb + s_list[e]) * n + lane;
+      const long long qbase = DENS ? (c * nb + s_list[e]) * n + lane : base;
       for (int j = 0; lane + j < n; j += 32)
-        particle_terms<T, LOG, 0>(xr[base + j], xi[base + j], qr[base + j],
-                                  qi[base + j], cr, ci, rh, P, add);
+        particle_terms<T, LOG, 0>(xr[base + j], xi[base + j], qr[qbase + j],
+                                  qi[qbase + j], cr, ci, rh, P, add);
     }
     __syncwarp();                        // every lane's column written
     for (int l = lane; l < P; l += 32) {
@@ -227,6 +238,31 @@ __global__ void __launch_bounds__(WARPS * 32) p2l_kernel(
       o_i[l] = scaled<T, LOG>(si, l);
     }
   }
+}
+
+template <typename T, bool LOG, int PF, int NF>
+__global__ void __launch_bounds__(WARPS * 32) p2l_kernel(
+    const int32_t* __restrict__ lists, const T* __restrict__ z0r,
+    const T* __restrict__ z0i, const T* __restrict__ rho,
+    const T* __restrict__ xr, const T* __restrict__ xi,
+    const T* __restrict__ qr, const T* __restrict__ qi, int nb, int S,
+    int n_, int P_, T* __restrict__ outr, T* __restrict__ outi) {
+  p2l_body<T, LOG, PF, NF, false>(lists, z0r, z0i, rho, xr, xi, qr, qi, nb,
+                                  S, n_, P_, outr, outi);
+}
+
+// K densities on one geometry: density blockIdx.y of the (K, nb, n)
+// charge planes and the (K, nb, P) result, over the single (1, ...)
+// lists, centres, radii and positions (read with problem stride 0).
+template <typename T, bool LOG, int PF, int NF>
+__global__ void __launch_bounds__(WARPS * 32) p2l_block_kernel(
+    const int32_t* __restrict__ lists, const T* __restrict__ z0r,
+    const T* __restrict__ z0i, const T* __restrict__ rho,
+    const T* __restrict__ xr, const T* __restrict__ xi,
+    const T* __restrict__ qr, const T* __restrict__ qi, int nb, int S,
+    int n_, int P_, T* __restrict__ outr, T* __restrict__ outi) {
+  p2l_body<T, LOG, PF, NF, true>(lists, z0r, z0i, rho, xr, xi, qr, qi, nb,
+                                 S, n_, P_, outr, outi);
 }
 
 static bool in_registers(int P) { return P == PFIX; }
@@ -247,10 +283,12 @@ static int launch_one(dim3 grid, int wpb, size_t smem, cudaStream_t s,
                       const void* lists, const void* z0r, const void* z0i,
                       const void* rho, const void* xr, const void* xi,
                       const void* qr, const void* qi, int nb, int S, int n,
-                      int P, void* outr, void* outi) {
-  const int rc = allow_smem(p2l_kernel<T, LOG, PF, NF>, smem);
+                      int P, void* outr, void* outi, bool dens) {
+  auto kernel = dens ? p2l_block_kernel<T, LOG, PF, NF>
+                     : p2l_kernel<T, LOG, PF, NF>;
+  const int rc = allow_smem(kernel, smem);
   if (rc) return rc;
-  p2l_kernel<T, LOG, PF, NF><<<grid, wpb * 32, smem, s>>>(
+  kernel<<<grid, wpb * 32, smem, s>>>(
       (const int32_t*)lists, (const T*)z0r, (const T*)z0i, (const T*)rho,
       (const T*)xr, (const T*)xi, (const T*)qr, (const T*)qi, nb, S, n, P,
       (T*)outr, (T*)outi);
@@ -262,10 +300,10 @@ static int launch_kernel(dim3 grid, int wpb, size_t smem, cudaStream_t s,
                          const void* lists, const void* z0r, const void* z0i,
                          const void* rho, const void* xr, const void* xi,
                          const void* qr, const void* qi, int nb, int S, int n,
-                         int P, void* outr, void* outi) {
+                         int P, void* outr, void* outi, bool dens) {
 #define P2L_ARGS                                                              \
   grid, wpb, smem, s, lists, z0r, z0i, rho, xr, xi, qr, qi, nb, S, n, P, outr, \
-      outi
+      outi, dens
   if (in_registers(P))
     return n == NFIX ? launch_one<T, LOG, PFIX, NFIX>(P2L_ARGS)
                      : launch_one<T, LOG, PFIX, 0>(P2L_ARGS);
@@ -273,12 +311,13 @@ static int launch_kernel(dim3 grid, int wpb, size_t smem, cudaStream_t s,
 #undef P2L_ARGS
 }
 
+// B problems (dens 0), or B densities on one geometry (dens 1).
 template <typename T>
 static int launch(const void* lists, const void* z0r, const void* z0i,
                   const void* rho, const void* xr, const void* xi,
                   const void* qr, const void* qi, int B, int nb, int S, int n,
                   int P, int log_kernel, void* outr, void* outi,
-                  void* stream) {
+                  void* stream, bool dens = false) {
   const int wpb = warps_per_block(sizeof(T), P, S);
   if (n < 1 || P < 1 || S < 1 || wpb < 1)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -288,10 +327,10 @@ static int launch(const void* lists, const void* z0r, const void* z0i,
   return log_kernel
              ? launch_kernel<T, true>(grid, wpb, smem, s, lists, z0r, z0i,
                                       rho, xr, xi, qr, qi, nb, S, n, P, outr,
-                                      outi)
+                                      outi, dens)
              : launch_kernel<T, false>(grid, wpb, smem, s, lists, z0r, z0i,
                                        rho, xr, xi, qr, qi, nb, S, n, P, outr,
-                                       outi);
+                                       outi, dens);
 }
 
 #define P2L_ENTRY(NAME, T)                                                    \
@@ -305,6 +344,18 @@ static int launch(const void* lists, const void* z0r, const void* z0i,
   }
 P2L_ENTRY(p2l_f32, float)
 P2L_ENTRY(p2l_f64, double)
+
+#define P2L_BLOCK_ENTRY(NAME, T)                                              \
+  extern "C" int NAME(const void* lists, const void* z0r, const void* z0i,    \
+                      const void* rho, const void* xr, const void* xi,        \
+                      const void* qr, const void* qi, int K, int nb, int S,   \
+                      int n, int P, int log_kernel, void* outr, void* outi,   \
+                      void* stream) {                                         \
+    return launch<T>(lists, z0r, z0i, rho, xr, xi, qr, qi, K, nb, S, n, P,    \
+                     log_kernel, outr, outi, stream, true);                   \
+  }
+P2L_BLOCK_ENTRY(p2l_block_f32, float)
+P2L_BLOCK_ENTRY(p2l_block_f64, double)
 
 // Dynamic shared memory per block (bytes) of a launch at these sizes.
 extern "C" int repro_smem_bytes(int elem, int n, int P, int S) {

@@ -51,7 +51,11 @@
 //    shifts the remaining levels, from the at most 256 boxes of level
 //    L - D up to the root, level by level with a barrier between levels.
 // p = 17 (P = 18) keeps every sum and the Pascal pass in registers; other
-// P run the same code over local arrays. B is the leading grid axis.
+// P run the same code over local arrays. B is the leading grid axis; for
+// K densities on one geometry (upward_block_kernel) it is the density,
+// over the one copy of the positions, leaf bounds, centres and radii
+// (problem stride 0), and each density's multipoles are the K = 1
+// kernel's, bit for bit.
 // Measured at the uniform 2^20 plan (f64, launch 1 + launch 2): this
 // design 0.031 + 0.017 ms. A first one (a warp a leaf, D = 2 at seven
 // levels, divisions, 160 registers, so one block an SM) took 0.205 +
@@ -211,19 +215,23 @@ __device__ __forceinline__ void m2m_step(Cx<T>* out,
   }
 }
 
+// The kernel's body on one problem's rows: positions, centres and radii
+// of geometry b, charges and multipoles of c (c = b in upward_kernel; the
+// one geometry b = 0 and density c in upward_block_kernel).
 template <typename T, bool LOG, int PF, bool TOP>
-__global__ void __launch_bounds__(THREADS, 2) upward_kernel(
+__device__ __forceinline__ void upward_body(
     const Cx<T>* __restrict__ z, const Cx<T>* __restrict__ q,
     const int32_t* __restrict__ bounds, const Cx<T>* __restrict__ cen,
-    const T* __restrict__ rho, int N, int L, int D, int P_, Cx<T>* out) {
+    const T* __restrict__ rho, int N, int L, int D, int P_, Cx<T>* out,
+    const long long b, const long long c) {
   const int P = PF > 0 ? PF : P_;
-  const long long b = blockIdx.y, NB = level_offset(L + 1);
+  const long long NB = level_offset(L + 1);
   cen += b * NB;
   rho += b * NB;
-  out += b * NB * P;
+  out += c * NB * P;
   if constexpr (!TOP) {
     z += b * N;
-    q += b * N;
+    q += c * N;
     const int box = blockIdx.x, nleaf = 1 << (2 * D);
     const int grp = threadIdx.x / G, r = threadIdx.x % G;
     const long long oL = level_offset(L);
@@ -255,21 +263,45 @@ __global__ void __launch_bounds__(THREADS, 2) upward_kernel(
 }
 
 template <typename T, bool LOG, int PF, bool TOP>
+__global__ void __launch_bounds__(THREADS, 2) upward_kernel(
+    const Cx<T>* __restrict__ z, const Cx<T>* __restrict__ q,
+    const int32_t* __restrict__ bounds, const Cx<T>* __restrict__ cen,
+    const T* __restrict__ rho, int N, int L, int D, int P_, Cx<T>* out) {
+  upward_body<T, LOG, PF, TOP>(z, q, bounds, cen, rho, N, L, D, P_, out,
+                               blockIdx.y, blockIdx.y);
+}
+
+// K densities on one geometry: density blockIdx.y of the (K, N) charges
+// and the (K, sum 4^l, P) multipoles over the single positions, leaf
+// bounds, centres and radii (problem stride 0).
+template <typename T, bool LOG, int PF, bool TOP>
+__global__ void __launch_bounds__(THREADS, 2) upward_block_kernel(
+    const Cx<T>* __restrict__ z, const Cx<T>* __restrict__ q,
+    const int32_t* __restrict__ bounds, const Cx<T>* __restrict__ cen,
+    const T* __restrict__ rho, int N, int L, int D, int P_, Cx<T>* out) {
+  upward_body<T, LOG, PF, TOP>(z, q, bounds, cen, rho, N, L, D, P_, out, 0,
+                               blockIdx.y);
+}
+
+template <typename T, bool LOG, int PF, bool TOP>
 static int launch_one(dim3 grid, cudaStream_t s, const void* z,
                       const void* q, const void* bounds, const void* cen,
                       const void* rho, int N, int L, int D, int P,
-                      void* out) {
-  upward_kernel<T, LOG, PF, TOP><<<grid, THREADS, 0, s>>>(
+                      void* out, bool dens) {
+  auto kernel = dens ? upward_block_kernel<T, LOG, PF, TOP>
+                     : upward_kernel<T, LOG, PF, TOP>;
+  kernel<<<grid, THREADS, 0, s>>>(
       (const Cx<T>*)z, (const Cx<T>*)q, (const int32_t*)bounds,
       (const Cx<T>*)cen, (const T*)rho, N, L, D, P, (Cx<T>*)out);
   return launch_status();
 }
 
+// B problems (dens false), or B densities on one geometry (dens true).
 template <typename T>
 static int launch(const void* z, const void* q, const void* bounds,
                   const void* cen, const void* rho, int B, int N, int L,
                   int P, int log_kernel, int stage, void* out,
-                  void* stream) {
+                  void* stream, bool dens = false) {
   if (B < 1 || N < 1 || L < 0 || L > 14 || P < 1 || P > PMAX)
     return static_cast<int>(cudaErrorInvalidValue);
   const int D = block_depth(L);
@@ -277,7 +309,7 @@ static int launch(const void* z, const void* q, const void* bounds,
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(stage ? 1 : 1u << (2 * (L - D)), B);
   cudaStream_t s = (cudaStream_t)stream;
-#define UP_ARGS grid, s, z, q, bounds, cen, rho, N, L, D, P, out
+#define UP_ARGS grid, s, z, q, bounds, cen, rho, N, L, D, P, out, dens
   if (stage) return P == PFIX ? launch_one<T, false, PFIX, true>(UP_ARGS)
                               : launch_one<T, false, 0, true>(UP_ARGS);
   if (P == PFIX)
@@ -298,6 +330,17 @@ static int launch(const void* z, const void* q, const void* bounds,
   }
 UP_ENTRY(upward_f32, float)
 UP_ENTRY(upward_f64, double)
+
+#define UP_BLOCK_ENTRY(NAME, T)                                             \
+  extern "C" int NAME(const void* z, const void* q, const void* bounds,     \
+                      const void* cen, const void* rho, int K, int N, int L, \
+                      int P, int log_kernel, int stage, void* out,          \
+                      void* stream) {                                       \
+    return launch<T>(z, q, bounds, cen, rho, K, N, L, P, log_kernel, stage, \
+                     out, stream, true);                                    \
+  }
+UP_BLOCK_ENTRY(upward_block_f32, float)
+UP_BLOCK_ENTRY(upward_block_f64, double)
 
 // Dynamic shared memory per block (bytes): none.
 extern "C" int repro_smem_bytes(int elem, int n, int P, int S) {

@@ -19,6 +19,13 @@ the m2p list, phi written once. Operands, with a leading problem axis B:
 
 Result: (outr, outi), (B, nb, n) — the evaluation-phase potential at the
 dense leaf slots.
+
+K densities on one plan (B = 1): qr, qi, br, bi, ar, ai and the result
+carry K rows, every other operand one. The kernel is then
+``eval_block_kernel<T, LOG, KD>`` (the entry ``eval_block_<dtype>``):
+each pair's geometry and logarithm or reciprocal once for its KD
+charges, in launches of KD = 8 densities; the rest of K runs one
+density a launch on ``eval_fused_kernel`` (``common.density_chunks``).
 """
 from __future__ import annotations
 
@@ -26,11 +33,11 @@ import torch
 
 from ...core.fmm import rows
 from ..build import CudaLibrary, I, P, check_tensors, on_cpu
-from ..common import l2p_horner, p2p_slots
+from ..common import density_chunks, geometry_rows, l2p_horner, p2p_slots
 
 LIB = CudaLibrary("eval_fused", {
-    f"eval_fused_{s}": [P, I, P, I] + [P] * 14 + [I] * 5 + [P, P, P]
-    for s in ("f32", "f64")})
+    f"eval_{k}_{s}": [P, I, P, I] + [P] * 14 + [I] * 5 + [P, P, P]
+    for k in ("fused", "block") for s in ("f32", "f64")})
 
 
 def eval_fused_plain(p2p_lists, m2p_lists, zr, zi, qr, qi, rk, tr, ti, br,
@@ -92,10 +99,21 @@ def eval_fused_cuda(p2p_lists, m2p_lists, zr, zi, qr, qi, rk, tr, ti, br,
     check_tensors(zr, zi, qr, qi, tr, ti, br, bi, ar, ai, mcr, mci, mrho,
                   dtype=dt, device=dev)
     Sm = m2p_lists.shape[-1] if with_m2p else 0
-    outr = torch.empty((B, nb, n), dtype=dt, device=dev)
+    K = qr.shape[0]
+    outr = torch.empty((K, nb, n), dtype=dt, device=dev)
     outi = torch.empty_like(outr)
     sfx = "f64" if dt == torch.float64 else "f32"
-    LIB.launch(f"eval_fused_{sfx}", p2p_lists, S, m2p_lists, Sm, zr, zi, qr,
-               qi, rk, tr, ti, br, bi, ar, ai, mcr, mci, mrho, B, nb, n,
-               p + 1, int(kernel == "log"), outr, outi)
+    if not geometry_rows(p2p_lists, qr):
+        LIB.launch(f"eval_fused_{sfx}", p2p_lists, S, m2p_lists, Sm, zr, zi,
+                   qr, qi, rk, tr, ti, br, bi, ar, ai, mcr, mci, mrho, B, nb,
+                   n, p + 1, int(kernel == "log"), outr, outi)
+        return outr, outi
+    for k0, kd in density_chunks(K):
+        rows_ = slice(k0, k0 + kd)
+        a_r, a_i = ((ar[rows_], ai[rows_]) if with_m2p else (None, None))
+        LIB.launch(f"eval_{'fused' if kd == 1 else 'block'}_{sfx}",
+                   p2p_lists, S, m2p_lists, Sm, zr, zi, qr[rows_],
+                   qi[rows_], rk, tr, ti, br[rows_], bi[rows_], a_r, a_i,
+                   mcr, mci, mrho, kd, nb, n, p + 1, int(kernel == "log"),
+                   outr[rows_], outi[rows_])
     return outr, outi

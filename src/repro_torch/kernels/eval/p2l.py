@@ -12,6 +12,11 @@ Result: (outr, outi), (B, nb, p+1) radius-normalized local-coefficient
 contributions. A source particle with |x - z0| == 0 is masked, as in the
 Pallas kernel (the plain sweep ``core.fmm.p2l_sweep`` goes singular
 there instead).
+
+K densities on one plan (B = 1): qr, qi and the result carry K rows,
+the lists, centres, radii and positions one; the kernel is then
+``p2l_block_kernel`` (entry ``p2l_block_<dtype>``), one launch with the
+density as its grid's second axis.
 """
 from __future__ import annotations
 
@@ -19,9 +24,11 @@ import torch
 
 from ...core.fmm import rows
 from ..build import CudaLibrary, I, P, check_tensors, on_cpu
+from ..common import geometry_rows
 
 LIB = CudaLibrary("p2l", {
-    f"p2l_{s}": [P] * 8 + [I] * 6 + [P, P, P] for s in ("f32", "f64")})
+    f"p2l{k}_{s}": [P] * 8 + [I] * 6 + [P, P, P]
+    for k in ("", "_block") for s in ("f32", "f64")})
 
 
 def p2l_plain(lists, z0r, z0i, rho, xr, xi, qr, qi, *, p: int,
@@ -82,9 +89,11 @@ def p2l_cuda(lists, z0r, z0i, rho, xr, xi, qr, qi, *, p: int,
     check_tensors(lists, dtype=torch.int32)
     check_tensors(z0r, z0i, rho, xr, xi, qr, qi, dtype=dt,
                   device=lists.device)
-    outr = torch.empty((B, nb, p + 1), dtype=dt, device=lists.device)
+    K = qr.shape[0]
+    outr = torch.empty((K, nb, p + 1), dtype=dt, device=lists.device)
     outi = torch.empty_like(outr)
     sfx = "f64" if dt == torch.float64 else "f32"
-    LIB.launch(f"p2l_{sfx}", lists, z0r, z0i, rho, xr, xi, qr, qi, B, nb, S,
-               n, p + 1, int(kernel == "log"), outr, outi)
+    entry = "p2l_block" if geometry_rows(lists, qr) else "p2l"
+    LIB.launch(f"{entry}_{sfx}", lists, z0r, z0i, rho, xr, xi, qr, qi, K,
+               nb, S, n, p + 1, int(kernel == "log"), outr, outi)
     return outr, outi

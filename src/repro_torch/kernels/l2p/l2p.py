@@ -11,13 +11,17 @@ problem axis B:
 
 Result: (outr, outi), (B, nb, n) — the p-term Horner of each box's local
 expansion at its particles, 0 in the padded slots.
+
+K densities on one plan (the per-phase path of ``core.fmm``'s density
+axis): the coefficient planes and the result carry K rows over the one
+geometry, one launch a density.
 """
 from __future__ import annotations
 
 import torch
 
 from ..build import CudaLibrary, I, P, check_tensors, on_cpu
-from ..common import l2p_horner
+from ..common import geometry_rows, l2p_horner
 
 LIB = CudaLibrary("l2p", {
     f"l2p_{s}": [P] * 5 + [I] * 4 + [P, P, P] for s in ("f32", "f64")})
@@ -49,5 +53,11 @@ def l2p_cuda(br, bi, tr, ti, rk, *, p: int):
     if outr.numel() == 0:
         return outr, outi
     sfx = "f64" if dt == torch.float64 else "f32"
-    LIB.launch(f"l2p_{sfx}", br, bi, tr, ti, rk, B, nb, n, Pn, outr, outi)
+    if not geometry_rows(tr, br):
+        LIB.launch(f"l2p_{sfx}", br, bi, tr, ti, rk, B, nb, n, Pn, outr,
+                   outi)
+        return outr, outi
+    for k in range(B):               # densities on one plan: one at a time
+        LIB.launch(f"l2p_{sfx}", br[k], bi[k], tr, ti, rk, 1, nb, n, Pn,
+                   outr[k], outi[k])
     return outr, outi

@@ -12,13 +12,17 @@ problem axis B:
 
 Result: (outr, outi), (B, nb, n) — the near-field potential at the dense
 leaf slots, self excluded by rank.
+
+K densities on one plan (the per-phase path of ``core.fmm``'s density
+axis): the charge planes and the result carry K rows over the one
+geometry, one launch a density.
 """
 from __future__ import annotations
 
 import torch
 
 from ..build import CudaLibrary, I, P, check_tensors, on_cpu
-from ..common import p2p_slots
+from ..common import geometry_rows, p2p_slots
 
 LIB = CudaLibrary("p2p", {
     f"p2p_{s}": [P, I] + [P] * 5 + [I] * 4 + [P, P, P]
@@ -41,9 +45,14 @@ def p2p_cuda(lists, zr, zi, qr, qi, rk, *, kernel: str = "harmonic"):
     dev = lists.device
     check_tensors(lists, rk, dtype=torch.int32, device=dev)
     check_tensors(zr, zi, qr, qi, dtype=dt, device=dev)
-    outr = torch.empty((B, nb, n), dtype=dt, device=dev)
+    outr = torch.empty(qr.shape, dtype=dt, device=dev)
     outi = torch.empty_like(outr)
     sfx = "f64" if dt == torch.float64 else "f32"
-    LIB.launch(f"p2p_{sfx}", lists, S, zr, zi, qr, qi, rk, B, nb, n,
-               int(kernel == "log"), outr, outi)
+    if not geometry_rows(lists, qr):
+        LIB.launch(f"p2p_{sfx}", lists, S, zr, zi, qr, qi, rk, B, nb, n,
+                   int(kernel == "log"), outr, outi)
+        return outr, outi
+    for k in range(qr.shape[0]):     # densities on one plan: one at a time
+        LIB.launch(f"p2p_{sfx}", lists, S, zr, zi, qr[k], qi[k], rk, 1, nb,
+                   n, int(kernel == "log"), outr[k], outi[k])
     return outr, outi

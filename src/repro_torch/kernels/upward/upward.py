@@ -16,7 +16,10 @@ a leading problem axis B:
 
 Result: (B, sum 4**l, p+1) complex radius-normalized multipoles in the
 same order, each box written once; ``upward_cuda`` hands them back as
-the per-level (B, 4**l, p+1) views the pipeline reads.
+the per-level (B, 4**l, p+1) views the pipeline reads. K densities on
+one plan (B = 1): q and the result carry K rows, the positions,
+centres and radii one; the kernel is then ``upward_block_kernel`` (entry
+``upward_block_<dtype>``), the density its grid's second axis.
 """
 from __future__ import annotations
 
@@ -26,9 +29,11 @@ from ...core.config import FmmConfig
 from ...core.fmm import upward as upward_plain
 from ...core.topology import leaf_layout
 from ..build import CudaLibrary, I, P, check_tensors, on_cpu
+from ..common import geometry_rows
 
 LIB = CudaLibrary("upward", {
-    f"upward_{s}": [P] * 5 + [I] * 6 + [P, P] for s in ("f32", "f64")})
+    f"upward{k}_{s}": [P] * 5 + [I] * 6 + [P, P]
+    for k in ("", "_block") for s in ("f32", "f64")})
 
 
 def upward_launches(nlevels: int) -> int:
@@ -55,14 +60,15 @@ def upward_cuda(tree, cfg: FmmConfig, rho) -> list:
     check_tensors(bounds, dtype=torch.int32, device=dev)
     check_tensors(centers, dtype=cfg.torch_complex, device=dev)
     check_tensors(rh, dtype=cfg.torch_real, device=dev)
-    B, N = z.shape
-    out = torch.empty((B, centers.shape[1], cfg.p + 1),
+    K, N = q.shape
+    out = torch.empty((K, centers.shape[1], cfg.p + 1),
                       dtype=cfg.torch_complex, device=dev)
     sfx = "f64" if cfg.dtype == "f64" else "f32"
+    entry = "upward_block" if geometry_rows(z, q) else "upward"
     for stage in range(upward_launches(L)):
-        LIB.launch(f"upward_{sfx}", torch.view_as_real(z),
+        LIB.launch(f"{entry}_{sfx}", torch.view_as_real(z),
                    torch.view_as_real(q), bounds, torch.view_as_real(centers),
-                   rh, B, N, L, cfg.p + 1,
+                   rh, K, N, L, cfg.p + 1,
                    int(cfg.kernel == "log"), stage, torch.view_as_real(out))
     offs = [(4**l - 1) // 3 for l in range(L + 2)]
     return [out[:, offs[l]:offs[l + 1]] for l in range(L + 1)]

@@ -61,12 +61,13 @@ replays. A replay makes no host launch.
 
 Tracing (``repro_torch.trace``): an eager run is the span
 ``program::eager`` and a capture ``program::capture``, each tagged with
-the entry point's name; the counters
+the entry point's name and, for a program of K densities on one geometry
+(``apply_charges``), carrying K (``Span.densities``); the counters
 ``program.eager``, ``program.capture`` and ``program.replay`` count them
 across every program of the process, released ones included, and
 ``program.plan_bind`` counts the binds of held arguments (eager, capture
 or replay); a replay's copy of newly bound arguments is the span
-``program::bind``, tagged with the entry point's name. A capture
+``program::bind``, tagged and carrying K alike. A capture
 keeps the pipeline's phase marks with an end mark after it, and each
 replay records a timing event before the graph's launch, so
 ``repro_torch.trace.snapshot()["phases"][entry]`` holds the device time
@@ -192,11 +193,14 @@ class Program:
     ``ProgramSet`` (its pool and stream on the card), held weakly so
     that no reference cycle keeps a released graph alive until a
     garbage collection; ``held`` the leading arguments bound by
-    identity."""
+    identity; ``densities`` the K its spans carry (None: not a
+    densities program)."""
 
     def __init__(self, key: tuple, fn: Callable, args: tuple,
-                 owner: "ProgramSet", held: int = 0):
+                 owner: "ProgramSet", held: int = 0,
+                 densities: Optional[int] = None):
         self.key = key
+        self.densities = densities
         self.launches: dict[str, int] = {}
         self.recorded: dict[str, int] = {}
         self.calls = 0
@@ -228,13 +232,15 @@ class Program:
         elif self.calls == 0 or self.key[-1].type != "cuda":
             before = launch_counts()
             trace.count("program.eager")
-            with trace.span("program::eager", tag=self.entry):
+            with trace.span("program::eager", tag=self.entry,
+                            densities=self.densities):
                 out = self._fn(*args)
             if self.calls == 0:
                 self.launches = _diff(launch_counts(), before)
         else:
             trace.count("program.capture")
-            with trace.span("program::capture", tag=self.entry):
+            with trace.span("program::capture", tag=self.entry,
+                            densities=self.densities):
                 self._capture(args)
             out = self._replay(args, False)
         self.calls += 1
@@ -292,7 +298,8 @@ class Program:
         pairs = list(zip(_leaves(self._static_in), _leaves(args)))
         with torch.cuda.stream(stream):
             if bind:
-                with trace.span("program::bind", tag=self.entry):
+                with trace.span("program::bind", tag=self.entry,
+                                densities=self.densities):
                     _copy(pairs[:self._held])
             _copy(pairs[self._held:])
             self._marks.before_replay(stream)
@@ -326,14 +333,14 @@ class ProgramSet:
         return dict(self._programs)
 
     def program(self, key: tuple, fn: Callable, args: tuple,
-                held: int = 0) -> Program:
+                held: int = 0, densities: Optional[int] = None) -> Program:
         """The program of ``key``, made from a first call's ``args`` if
         there is none (``fn()`` makes its pipeline; it holds the first
-        ``held`` arguments)."""
+        ``held`` arguments; its spans carry ``densities``)."""
         program = self._programs.get(key)
         if program is None:
             program = self._programs[key] = Program(key, fn(), args, self,
-                                                    held)
+                                                    held, densities)
         return program
 
     def pool_and_stream(self, device: torch.device) -> tuple:

@@ -20,10 +20,15 @@ Callers whose positions never move and whose charges change every call
 evaluate new charges on it:
 
     phi = solver.apply_charges(plan, q)      # bitwise apply(z, q)
+    phis = solver.apply_charges(plan, qs)    # (K, N): K densities at once
 
 The topology depends on the positions alone, so this is ``apply``'s phi
 bit for bit; its program holds the plan (``solver.program``) and copies
-only ``q`` on each replay.
+only ``q`` on each replay. A block solver (one density a right-hand
+side) hands K <= ``MAX_DENSITIES`` densities to one call: the plan's
+tree, lists and geometry are read once for all of them (the density
+axis of ``core.fmm``), and row k is ``apply_charges(plan, qs[k])``
+within rounding.
 
 Each entry point runs as a compiled program, one per problem shape
 (``solver.program``): on the card the first call at a shape (B, dtype)
@@ -85,6 +90,8 @@ from .program import ProgramSet
 # pools are bounded in bytes apart from this count (``solver.program``).
 # Hit/miss/eviction traffic is read with ``FmmSolver.cache_info()``.
 _CACHE: OrderedDict = OrderedDict()
+#: Densities one ``apply_charges`` call evaluates on a one-problem plan.
+MAX_DENSITIES = 16
 _CACHE_MAX = 64
 _CACHE_STATS = {"hits": 0, "misses": 0, "evictions": 0}
 
@@ -238,7 +245,8 @@ class FmmSolver:
         return len(self._programs)
 
     def programs(self) -> dict:
-        """This solver's programs by key ``(entry, B, dtype, device)``:
+        """This solver's programs by key ``(entry, B, dtype, device)``
+        (B is ``(1, K)`` for ``apply_charges`` of K > 1 densities):
         each with the host launches of its first run (``launches``), the
         launches its capture recorded (``recorded``), its ``calls`` and
         its graph ``replays``."""
@@ -317,20 +325,24 @@ class FmmSolver:
 
         return core
 
-    def _run(self, entry: str, *args, held: int = 0):
+    def _run(self, entry: str, *args, held: int = 0,
+             densities: Optional[int] = None):
         """``entry``'s program at the shape of ``args`` (made at the first
         call, with the device constants it reads, holding the first
-        ``held`` arguments: ``solver.program``) run on ``args``: (B, N)
-        phi in input order, (phi, Health) or a plan."""
+        ``held`` arguments: ``solver.program``; ``densities`` K on one
+        geometry, a program of its own for each K > 1) run on ``args``:
+        (B, N) phi in input order, (phi, Health) or a plan."""
         t = args[0] if isinstance(args[0], torch.Tensor) else args[0].tree.z
-        key = (entry, t.shape[0], t.dtype, t.device)
+        B = t.shape[0] if (densities or 1) == 1 else (t.shape[0], densities)
+        key = (entry, B, t.dtype, t.device)
 
         def make():
             for half in ENTRIES[entry]:
                 self._prepare(half, t)
             return self._pipeline(entry)
 
-        return self._programs.program(key, make, args, held)(*args)
+        return self._programs.program(key, make, args, held,
+                                      densities)(*args)
 
     def _to_device(self, a) -> torch.Tensor:
         t = a if isinstance(a, torch.Tensor) else torch.from_numpy(
@@ -436,11 +448,17 @@ class FmmSolver:
         plan, (B, N) for a plan of B problems. ``q`` is gathered into the
         tree's order (phase ``fmm::charges``), then the plan is evaluated
         as ``apply_plan`` evaluates it; phi is bitwise ``apply(z, q)``'s.
+        On a B = 1 plan ``q`` may also be (K, N), K densities on its one
+        geometry (1 <= K <= ``MAX_DENSITIES``): phi is (K, N), its row k
+        ``apply_charges(plan, q[k])`` within rounding, from one program
+        a K that reads the plan's tree, lists and geometry once. The
+        counter ``fmm.densities`` adds the rows each call evaluates.
         The program holds the plan: a call with the plan of the last call
         copies only ``q`` on the card, a call with another plan of the
         same shapes binds it once (``program.plan_bind``). A plan of
         another config (N, depth, caps or dtype), or ``q`` of another
-        shape, raises ``ShapeError``."""
+        shape (K = 0, K > ``MAX_DENSITIES``, three axes, K rows on a plan
+        of B > 1 problems), raises ``ShapeError``."""
         cfg = self.cfg
         zs = tuple(plan.tree.z.shape)
         conn = plan.conn
@@ -456,17 +474,23 @@ class FmmSolver:
                 f"particles {zs} {plan.tree.z.dtype}, "
                 f"{len(plan.tree.centers) - 1} levels, caps "
                 f"{conn.p2p.shape[-1]}/{conn.weak[-1].shape[-1]}")
-        want = (cfg.n,) if zs[0] == 1 else zs
         qs = tuple(getattr(q, "shape", ()))
-        if qs != want:
+        single = zs[0] == 1 and qs == (cfg.n,)
+        block = (zs[0] == 1 and len(qs) == 2 and qs[-1] == cfg.n
+                 and 1 <= qs[0] <= MAX_DENSITIES)
+        if not (single or block or qs == zs):
+            want = ((f"({cfg.n},) or (K, {cfg.n}) with 1 <= K <= "
+                     f"{MAX_DENSITIES}") if zs[0] == 1 else f"{zs}")
             raise ShapeError(f"apply_charges wants q of shape {want} for a "
                              f"plan of {zs}; got {qs}")
         self._validate_dtypes("apply_charges", q=q)
-        qd = self._to_device(q)
+        qd = self._to_device(q).reshape(-1, cfg.n)
+        trace.count("fmm.densities", qd.shape[0])
         # the program holds the plan without its charges: it reads no others
         bare = FmmPlan(plan.tree._replace(q=None), conn)
-        phi = self._run("apply_charges", bare, qd.reshape(zs), held=1)
-        return phi[0] if zs[0] == 1 else phi
+        phi = self._run("apply_charges", bare, qd, held=1,
+                        densities=qd.shape[0] if block else 1)
+        return phi[0] if single else phi
 
     def plan(self, z, q) -> FmmPlan:
         """Topological phase only (tree + connectivity), for inspection."""

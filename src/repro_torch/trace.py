@@ -1,9 +1,10 @@
 """Spans, counters and device phase marks of the port: one process-wide,
 in-memory, bounded registry that ``snapshot()`` returns whole.
 
-Spans. ``with span(name, tag=None):`` appends one record (id, parent id,
-name, start, end on the host's ``time.perf_counter``, tag) when the
-block exits; the parent is the innermost span open on the same thread.
+Spans. ``with span(name, tag=None, densities=None):`` appends one
+record (id, parent id, name, start, end on the host's
+``time.perf_counter``, tag, densities: the densities a call evaluates
+on one geometry, where the span is one call's) when the block exits; the parent is the innermost span open on the same thread.
 A ring keeps the newest ``SPANS`` records. Two clock reads and an append
 are cheap enough to stay on. While a ``torch.profiler`` runs, a span
 also enters a ``record_function`` range of its name, so that it sits on
@@ -72,6 +73,7 @@ class Span(NamedTuple):
     start: float
     end: float
     tag: Any = None
+    densities: Optional[int] = None
 
 
 def _open() -> list:
@@ -90,10 +92,12 @@ class span:
     """A host span (module docstring); ``id`` and ``start`` are set on
     entry."""
 
-    __slots__ = ("name", "tag", "id", "parent", "start", "_range")
+    __slots__ = ("name", "tag", "densities", "id", "parent", "start",
+                 "_range")
 
-    def __init__(self, name: str, tag: Any = None):
-        self.name, self.tag = name, tag
+    def __init__(self, name: str, tag: Any = None,
+                 densities: Optional[int] = None):
+        self.name, self.tag, self.densities = name, tag, densities
 
     def __enter__(self) -> "span":
         stack = _open()
@@ -113,7 +117,7 @@ class span:
             self._range.__exit__(*exc)
         _open().pop()
         _spans.append(Span(self.id, self.parent, self.name, self.start, end,
-                           self.tag))
+                           self.tag, self.densities))
 
 
 class phase(span):

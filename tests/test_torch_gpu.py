@@ -590,6 +590,98 @@ def test_p2l_kernel_instantiations_and_batch(cuda, n, nlevels, p, dtype,
         assert all(torch.equal(x[b], y[0]) for x, y in zip(got, alone))
 
 
+def _density_plan(cfg, dist, K, cuda, seed=11):
+    """A one-problem plan of ``dist`` with K real N(0, 1) densities in
+    place of its charges (``with_charges``: (K, N) charges, one
+    geometry), its effective radii, and the plain upward and downward
+    passes' (K, ...) multipoles and leaf locals."""
+    z, q = particles(dist, cfg.n, seed, device=cuda)
+    plan = F.fmm_build(z[None].to(cfg.torch_complex),
+                       q[None].to(cfg.torch_complex), cfg)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    Q = torch.randn((K, cfg.n), generator=gen, device=cuda,
+                    dtype=torch.float64).to(cfg.torch_complex)
+    plan = F.with_charges(plan, Q)
+    rho = F.effective_radii(plan.tree, cfg)
+    mult = upward_plain(plan.tree, cfg, rho)
+    local = F.downward(mult, plan.tree, plan.conn, cfg)
+    return plan, rho, mult, local
+
+
+BLOCK_TOL = {"f64": 1e-10, "f32": 1e-5}
+
+
+@pytest.mark.parametrize("K", [3, 8, 11])
+@pytest.mark.parametrize("dist", ["layer", "wires8"])
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("kernel", ["harmonic", "log"])
+def test_density_kernels_match_their_plain_twins(cuda, K, dist, dtype,
+                                                 kernel):
+    """K densities on one 2^14 plan (the layer points, with P2L and M2P
+    entries; the wire contours; K = 11 runs M2L and the evaluation as a
+    launch of 8 and three single-density ones): the upward pass, the
+    level-fused M2L, P2L and the fused evaluation each against its plain
+    version within 1e-10 (f64) / 1e-5 (f32) scaled, two launches bitwise
+    equal, and each density of the grid-axis kernels (upward, P2L) and of
+    M2L bitwise that density alone through the K = 1 kernel."""
+    from repro_torch.kernels.common import density_chunks
+
+    smoke = _smoke()
+    cfg = FmmConfig(n=1 << 14, nlevels=4, p=17, dtype=dtype, kernel=kernel,
+                    strong_cap=96, weak_cap=256)
+    plan, rho, mult, local = _density_plan(cfg, dist, K, cuda)
+    tree, conn = plan.tree, plan.conn
+    tol = BLOCK_TOL[dtype]
+    chunks = len(density_chunks(K))
+
+    def single(k):
+        return tree._replace(q=tree.q[k:k + 1].contiguous())
+
+    # upward
+    reset_launch_counts()
+    got = torch.view_as_complex(_twice(lambda: (torch.view_as_real(
+        torch.cat(upward_cuda(tree, cfg, rho), dim=1)),))[0])
+    assert launch_counts()["upward"] == 2 * upward_launches(cfg.nlevels)
+    assert smoke.scaled_err(got, torch.cat(mult, dim=1)) <= tol
+    for k in range(K):
+        alone = torch.cat(upward_cuda(single(k), cfg, rho), dim=1)
+        assert torch.equal(_bits(torch.view_as_real(got[k:k + 1])),
+                           _bits(torch.view_as_real(alone))), k
+    # level-fused M2L
+    args, _ = m2l_operands(mult, conn.weak, tree.centers, cfg, rho)
+    reset_launch_counts()
+    got = torch.complex(*_twice(lambda: m2l_cuda(*args)))
+    assert launch_counts()["m2l"] == 2 * chunks
+    assert smoke.scaled_err(got, torch.complex(*m2l_plain(*args))) <= tol
+    for k in range(K):
+        one = list(args)
+        one[1], one[2] = args[1][k:k + 1], args[2][k:k + 1]
+        alone = torch.complex(*m2l_cuda(*one))
+        assert torch.equal(_bits(torch.view_as_real(got[k:k + 1])),
+                           _bits(torch.view_as_real(alone))), k
+    # P2L
+    args, kw = p2l_operands(tree, conn, cfg, rho[-1])
+    reset_launch_counts()
+    got = torch.complex(*_twice(lambda: p2l_cuda(*args, **kw)))
+    assert launch_counts()["p2l"] == 2
+    ref = torch.complex(*p2l_plain(*args, **kw))
+    assert smoke.scaled_err(got, ref) <= tol or float(ref.abs().max()) == 0
+    for k in range(K):
+        alone = p2l_operands(single(k), conn, cfg, rho[-1])[0]
+        alone = torch.complex(*p2l_cuda(*alone, **kw))
+        assert torch.equal(_bits(torch.view_as_real(got[k:k + 1])),
+                           _bits(torch.view_as_real(alone))), k
+    # fused evaluation
+    args, kw = eval_operands(local, mult[-1], tree, conn, cfg)
+    reset_launch_counts()
+    got = torch.complex(*_twice(lambda: eval_fused_cuda(*args, **kw)))
+    assert launch_counts()["eval_fused"] == 2 * chunks
+    ref = torch.complex(*eval_fused_plain(*args, **kw))
+    err = smoke.scaled_err(got, ref)
+    print(f"density kernels [{kernel}/{dtype}/{dist}/K={K}]: eval {err:.2e}")
+    assert err <= tol
+
+
 @pytest.mark.parametrize("kernel", ["harmonic", "log"])
 def test_p2l_kernel_masks_a_source_on_the_target_center(cuda, kernel):
     """A source particle exactly on its target leaf's center contributes
@@ -1085,7 +1177,8 @@ def test_each_entry_point_replays_its_eager_pipeline_bitwise(cuda, dtype,
                                                              backend):
     """Each of the six entry points (``apply``, ``apply_with_health``,
     ``apply_batched`` at B = 4, ``refresh``, ``apply_plan``,
-    ``apply_charges``): the first
+    ``apply_charges``, and its program of 8 densities on the plan): the
+    first
     call launches one run's kernels from the host (the main path's, or
     the per-phase path's), the second records them into its capture and
     launches nothing from the host, a replay launches nothing from the
@@ -1112,8 +1205,7 @@ def test_each_entry_point_replays_its_eager_pipeline_bitwise(cuda, dtype,
             assert (host, rec) == expect, (entry, n)
             assert all(torch.equal(a, b) for a, b in
                        zip(smoke.leaves(got), smoke.leaves(ref))), entry
-        prog = next(p for k, p in solver.programs().items()
-                    if k[0] == entry)
+        prog = smoke.program_of(solver, entry)
         assert prog.launches == want and prog.recorded == want
         (got, ran), host, rec = _runs(lambda: smoke.replay_kernels(call,
                                                                    torch))
@@ -1122,7 +1214,7 @@ def test_each_entry_point_replays_its_eager_pipeline_bitwise(cuda, dtype,
         assert all(torch.equal(a, b) for a, b in
                    zip(smoke.leaves(got), smoke.leaves(ref))), entry
         assert (prog.calls, prog.replays) == (3, 2)
-    assert solver._compiled_program_count() == 6
+    assert solver._compiled_program_count() == 7
 
 
 def test_replay_phase_marks_read_positive_device_times(cuda):

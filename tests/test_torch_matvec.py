@@ -129,14 +129,17 @@ def test_plan_binds_count_plans_not_calls():
 
 
 def test_wrong_shapes_raise_shape_error():
-    """Charges of another length or rank, a plan of other caps, depth or
-    dtype: ``ShapeError``; real charges: ``DTypeError``, as ``apply``."""
+    """Charges of another length, of three axes, or of no or more than
+    ``MAX_DENSITIES`` rows (a (K, N) block of 1..16 densities is a shape
+    the one-problem plan takes), a plan of other caps, depth or dtype:
+    ``ShapeError``; real charges: ``DTypeError``, as ``apply``."""
     _, cfg = configs(n=512, nlevels=2, p=8, dtype="f64", strong_cap=48,
                      weak_cap=128)
     z, q0 = inputs("uniform", cfg.n, 10)
     solver = FmmSolver(cfg, "cuda", device="cpu")
     plan = solver.refresh(z, q0)
-    for bad in (q0[:-1], q0[None], np.stack([q0, q0])):
+    for bad in (q0[:-1], q0[None, None], np.stack([q0, q0])[:, :-1],
+                np.zeros((0, cfg.n), np.complex128), np.stack([q0] * 17)):
         with pytest.raises(ShapeError):
             solver.apply_charges(plan, bad)
     with pytest.raises(DTypeError):
